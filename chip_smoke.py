@@ -6,21 +6,23 @@
 Phases, one JSON line each:
 
 1. build        compile every CUDA kernel of the package with nvcc (sm_90a).
-2. snap         the H3 geometry kernel against its plain PyTorch version on
-                the card: 2^20 Boston-box and 2^20 global points at res 8,
-                9, 10 (>= 99.8% / 99.5% identical (face, flat27, digits),
-                the reference's own bars), and its time at the main path's
-                shape (2^19 points, res 9).  Then (snap_main_inputs) the
-                kernel against its plain version on the main path's own
-                inputs, the first synthetic_backfill batch: exact.
+2. snap         the fused H3 snap kernel (lat, lng -> index words hi, lo)
+                against its plain PyTorch version on the card: 2^20
+                Boston-box points, 2^20 global points and 12 x 2^16 points
+                around the 12 pentagons, at every res 0..10, 100%
+                identical words; and its time at the main path's shape
+                (2^19 points, res 9).  Then (snap_main_inputs) the kernel
+                against its plain version on the main path's own inputs,
+                the first synthetic_backfill batch: exact.
 3. fold_check   the fold on the card against the fold on the CPU (the plain
                 versions the CPU tests hold against the JAX package) on a
                 small stream, both fed the same cell keys.
 4. fold         the synthetic_backfill pipeline end to end through
                 heatmap_tpu_torch.stream: 10M events, 20 batches of 2^19,
                 a 2^20-row slab with 64 histogram bins.  The snap kernel
-                must launch on every batch, no group may overflow, and the
-                tile docs' counts must sum to the events aggregated.
+                must launch once a batch, no group may overflow, and the
+                tile docs' counts must sum to the events aggregated.  Then,
+                outside the timed run, the ops one batch issues.
 5. determinism  the first 3 batches twice from a fresh slab: the packed
                 emits must be byte-identical.
 
@@ -54,22 +56,34 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def snap_ops_per_point(res: int) -> int:
-    """Operations the geometry kernel does for one point at ``res``, each
-    mul, add, divide, compare, select and int op counted once and each
-    sin/cos call counted once (a lower bound on the work):
+def snap_ops(res: int, n: int, n_pent: int, pent_steps: int) -> int:
+    """Operations the fused snap needs for ``n`` points at ``res``, of which
+    ``n_pent`` lie in pentagon base cells and take ``pent_steps`` pentagon
+    rotation steps in all.  The algorithm's work, stage by stage, each mul,
+    add, divide, compare, shift, logic op, table read and sin/cos call
+    counted once (a lower bound):
 
+    geometry, every point:
     - unit vector: 4 trig calls + 3 mul;
-    - face search: 20 x (3 mul + 2 add + 1 compare + 11 selects);
+    - face search: 20 x (3 mul + 2 add + 1 compare);
     - gnomonic projection: 3 div + 3 sub + 6 mul + 4 add;
     - Class III rotation (odd res): 4 mul + 2 add; scale: 2 mul;
     - hex2d -> ijk: ~40 float and int ops;
-    - each of ``res`` aperture-7 rounds: ~60 int ops;
-    - clamps and the flat27 index: ~12."""
-    ops = 4 + 3 + 20 * (3 + 2 + 1 + 11) + (3 + 3 + 6 + 4) + 2 + 40 + 12
-    if res % 2 == 1:
-        ops += 6
-    return ops + 60 * res
+    - each of ``res`` aperture-7 rounds: ~80 int ops (coarsen 29, finer
+      centre 26, the digit 26);
+    - clamps and the flat27 index: 12;
+    tables, every point: base cell, rotation count and pentagon flag (3
+    reads) and the branch, 4; packing into (hi, lo), 10;
+    digit rotations: a hexagon rotates each of its ``res`` fields once (6
+    ops a field: shift, mask, index, read, shift, or); a pentagon instead
+    reads its cw flag, finds its leading digit (6) and takes its steps,
+    each one rotation of the fields plus a leading digit.  The pentagon's
+    conditional extra rotations are not counted."""
+    geometry = 7 + 20 * 6 + 16 + (6 if res % 2 == 1 else 0) + 2 + 40 \
+        + 80 * res + 12
+    field_pass = 6 * res
+    ops = n * (geometry + 4 + 10) + (n - n_pent) * field_pass
+    return ops + n_pent * 7 + pent_steps * (field_pass + 6)
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -111,11 +125,53 @@ def region_points(rng, n, region):
             np.radians(lng).astype(np.float32))
 
 
-def compare_geometry(torch, snap_kernel, lat, lng, res):
-    """(share of identical (face, flat27, digits) triples, max abs diff)
+def icosahedron_vertices() -> np.ndarray:
+    """(12, 3) unit vectors: the icosahedron's vertices, the centres of
+    the 12 pentagon base cells.  Two faces that share an edge share its
+    two end points, which lie at the same angle from both face centres."""
+    from heatmap_tpu_torch.hexgrid.constants import FACE_CENTER_XYZ
+
+    c = np.asarray(FACE_CENTER_XYZ, np.float64)
+    k = np.sqrt((5 + 2 * np.sqrt(5)) / 15)  # cos(face centre, its vertex)
+    dots = c @ c.T
+    adjacent = np.isclose(dots, np.sort(dots, axis=1)[:, -2:-1])
+    verts = []
+    for f, g in zip(*np.nonzero(np.triu(adjacent, 1))):
+        s = c[f] + c[g]
+        a = k / (1 + dots[f, g])
+        n = np.cross(c[f], c[g])
+        b = np.sqrt(1 - a * a * (s @ s)) / np.linalg.norm(n)
+        verts += [a * s + b * n, a * s - b * n]
+    verts = np.unique(np.round(np.asarray(verts), 9), axis=0)
+    if len(verts) != 12:
+        raise AssertionError(f"found {len(verts)} icosahedron vertices")
+    return verts
+
+
+def pentagon_points(torch, snap_kernel, rng, per_pentagon):
+    """``per_pentagon`` points around each pentagon centre (normal jitter of
+    0.02 rad, ~130 km), where the pentagon digit rotations run."""
+    from heatmap_tpu_torch.hexgrid import device as hexdev
+
+    v = icosahedron_vertices()
+    lat0 = np.arcsin(np.clip(v[:, 2], -1, 1))
+    lng0 = np.arctan2(v[:, 1], v[:, 0])
+    hi, _ = snap_kernel.latlng_to_cell_reference(
+        *(torch.from_numpy(a.astype(np.float32)) for a in (lat0, lng0)), 0)
+    if not hexdev._DeviceTables().bc_pent[(hi.numpy() >> 13) & 0x7F].all():
+        raise AssertionError("an icosahedron vertex is not in a pentagon")
+    jit = rng.normal(0.0, 0.02, (len(v), per_pentagon, 2))
+    lat = np.clip(lat0[:, None] + jit[..., 0], -1.5707, 1.5707)
+    lng = lng0[:, None] + jit[..., 1]
+    return (lat.reshape(-1).astype(np.float32),
+            lng.reshape(-1).astype(np.float32))
+
+
+def compare_cells(torch, snap_kernel, lat, lng, res):
+    """(share of identical (hi, lo) words, max abs difference of a word)
     between the kernel and its plain version on the same CUDA tensors."""
-    got = snap_kernel.snap_geometry(lat, lng, res)
-    ref = snap_kernel.snap_geometry_reference(lat, lng, res)
+    got = snap_kernel.latlng_to_cell_kernel(lat, lng, res)
+    ref = snap_kernel.latlng_to_cell_reference(lat, lng, res)
     torch.cuda.synchronize()
     same = torch.ones_like(got[0], dtype=torch.bool)
     err = 0
@@ -124,6 +180,18 @@ def compare_geometry(torch, snap_kernel, lat, lng, res):
         same &= a == b
         err = max(err, int((a.long() - b.long()).abs().max()))
     return float(same.float().mean()), err
+
+
+def pentagon_work(snap_kernel, lat, lng, res):
+    """(points in pentagon base cells, pentagon rotation steps they take)
+    for these inputs, from the plain version's geometry and tables."""
+    from heatmap_tpu_torch.hexgrid import device as hexdev
+
+    T = hexdev._DeviceTables()
+    _, flat, _ = snap_kernel.snap_geometry_reference(lat, lng, res)
+    flat = flat.cpu().numpy()
+    pent = T.bc_pent[T.face_ijk_bc[flat]] != 0
+    return int(pent.sum()), int(T.face_ijk_rot[flat][pent].sum())
 
 
 def phase_build(_build):
@@ -138,31 +206,33 @@ def phase_build(_build):
 
 def phase_snap(torch, snap_kernel, dev):
     rng = np.random.default_rng(SEED)
-    bars = {"city": 0.998, "global": 0.995}
-    pts = {r: region_points(rng, 1 << 20, r) for r in bars}
+    pts = {r: region_points(rng, 1 << 20, r) for r in ("city", "global")}
+    pts["pentagon"] = pentagon_points(torch, snap_kernel, rng, 1 << 16)
+    pts = {r: tuple(torch.from_numpy(a).to(dev) for a in ab)
+           for r, ab in pts.items()}
     shares = {}
-    for res in (8, 9, 10):
+    for res in range(11):
         for region, (lat, lng) in pts.items():
-            share, err = compare_geometry(
-                torch, snap_kernel, torch.from_numpy(lat).to(dev),
-                torch.from_numpy(lng).to(dev), res)
-            shares[f"{region}_r{res}"] = {"identical": share,
-                                          "max_abs_err": err}
-            if share < bars[region]:
+            share, err = compare_cells(torch, snap_kernel, lat, lng, res)
+            shares[f"{region}_r{res}"] = share
+            if share != 1.0 or err != 0:
                 raise AssertionError(f"snap kernel vs plain, {region} res "
-                                     f"{res}: {share} < {bars[region]}")
-    lat, lng = (torch.from_numpy(a[:MAIN_BATCH]).to(dev)
-                for a in pts["city"])
-    ms = time_ms(torch, lambda: snap_kernel.snap_geometry(lat, lng, MAIN_RES),
-                 inner=20)
+                                     f"{res}: {share} identical, max abs "
+                                     f"err {err}")
+    lat, lng = (a[:MAIN_BATCH] for a in pts["city"])
+    ms = time_ms(
+        torch, lambda: snap_kernel.latlng_to_cell_kernel(lat, lng, MAIN_RES),
+        inner=20)
     plain_ms = time_ms(
-        torch, lambda: snap_kernel.snap_geometry_reference(lat, lng,
-                                                           MAIN_RES),
+        torch, lambda: snap_kernel.latlng_to_cell_reference(lat, lng,
+                                                            MAIN_RES),
         inner=1)
-    bms, by = bound_ms(MAIN_BATCH * 20.0,
-                       MAIN_BATCH * snap_ops_per_point(MAIN_RES))
-    out = {"phase": "snap", "agreement": shares, "points": MAIN_BATCH,
+    n_pent, pent_steps = pentagon_work(snap_kernel, lat, lng, MAIN_RES)
+    ops = snap_ops(MAIN_RES, MAIN_BATCH, n_pent, pent_steps)
+    bms, by = bound_ms(MAIN_BATCH * 16.0, ops)
+    out = {"phase": "snap", "identical": shares, "points": MAIN_BATCH,
            "res": MAIN_RES, "ms": ms, "plain_ms": plain_ms,
+           "ops": ops, "bytes": MAIN_BATCH * 16, "pentagon_points": n_pent,
            "bound_ms": bms, "bound_by": by}
     emit(out)
     return out
@@ -223,16 +293,16 @@ def phase_fold_check(torch, dev):
 def phase_fold(torch, run_pipeline, snap_kernel):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    snap_kernel.snap_geometry.launches = 0
+    snap_kernel.latlng_to_cell_kernel.launches = 0
     t0 = time.monotonic()
     rt, store = run_pipeline("synthetic_backfill", device="cuda")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = snap_kernel.snap_geometry.launches
+    launches = snap_kernel.latlng_to_cell_kernel.launches
     m = rt.metrics
     docs = store._tiles
     total = sum(d["count"] for d in docs.values())
-    if launches < m["batches"]:
+    if launches != m["batches"]:
         raise AssertionError(f"snap kernel launched {launches} times in "
                              f"{m['batches']} batches")
     if m["state_overflow"]:
@@ -246,14 +316,35 @@ def phase_fold(torch, run_pipeline, snap_kernel):
                *d["centroid"]["coordinates"]))]
     if bad:
         raise AssertionError(f"non-finite doc fields: {bad[:3]}")
+    del rt, store
     out = {"phase": "fold", "events": m["events_valid"],
            "batches": m["batches"], "wall_s": wall,
            "events_per_s": m["events_valid"] / wall,
            "p50_batch_ms": m["p50_batch_ms"], "tiles": len(docs),
            "tiles_emitted": m["tiles_emitted"],
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-           "snap_launches": launches}
+           "snap_launches": launches, "per_batch": count_batch_ops(torch)}
     emit(out)
+    return out
+
+
+def count_batch_ops(torch):
+    """The ops one synthetic_backfill batch issues on the card (its second
+    batch, after the first has made the cached tables), outside any timed
+    run."""
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.profile_fold import ops_per_batch
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+
+    p = get_pipeline("synthetic_backfill")
+    rt = MicroBatchRuntime(p.config, p.make_source(p.config), MemoryStore(),
+                           device="cuda")
+    if not rt.step_once():
+        raise AssertionError("synthetic_backfill ran dry")
+    out = ops_per_batch(rt)
+    del rt
+    torch.cuda.empty_cache()
     return out
 
 
@@ -308,9 +399,9 @@ def main() -> int:
     cols = p.make_source(p.config).poll(p.config.batch_size)
     lat, lng = (torch.from_numpy(a).to(dev)
                 for a in (cols.lat_rad, cols.lng_rad))
-    main_share, main_err = compare_geometry(torch, snap_kernel, lat, lng,
-                                            p.config.h3_res)
-    if main_share < 0.998 or main_err != 0:
+    main_share, main_err = compare_cells(torch, snap_kernel, lat, lng,
+                                         p.config.h3_res)
+    if main_share != 1.0 or main_err != 0:
         raise AssertionError(f"snap kernel vs plain on the main path's "
                              f"first batch: {main_share} identical, max "
                              f"abs err {main_err}")
@@ -321,9 +412,9 @@ def main() -> int:
     phase_determinism(torch)
 
     emit({"kernels": [{
-        "name": "snap_geometry",
+        "name": "snap_cell",
         "route": "cuda",
-        "source": "heatmap_tpu_torch/hexgrid/csrc/snap_geometry.cu",
+        "source": "heatmap_tpu_torch/hexgrid/csrc/snap_cell.cu",
         "replaces": "heatmap_tpu/hexgrid/pallas_kernel.py:66",
         "launches": fold["snap_launches"],
         "max_abs_err": main_err,

@@ -84,7 +84,7 @@ def load(source: str) -> ctypes.CDLL:
 
 
 # every kernel source of the package, built together by ``build_all``
-KERNEL_SOURCES = ("hexgrid/csrc/snap_geometry.cu",)
+KERNEL_SOURCES = ("hexgrid/csrc/snap_cell.cu",)
 
 
 def build_all() -> dict[str, Path]:

@@ -2,8 +2,8 @@
 
 The counterpart of ``heatmap_tpu/engine/step.py``, sort route only:
 
-  1. ``snap_and_window``: the H3 snap (the CUDA geometry kernel on the card,
-     its plain version on the CPU) and the tumbling window start.  Invalid
+  1. ``snap_and_window``: the H3 snap (the fused CUDA snap kernel on the
+     card, its plain version on the CPU) and the tumbling window start.  Invalid
      rows get the EMPTY key.
   2. ``merge_batch``: one stable sort of the (state ∥ batch) compressed
      keys, segment ids by cumsum, then scatters that rebuild the sorted slab
@@ -118,9 +118,9 @@ def _deterministic():
 
 
 def _snap_impl(res: int):
-    """The in-program H3 snap: the geometry kernel plus the table stage
-    (``snap_kernel.latlng_to_cell_kernel``, which launches the CUDA kernel
-    on CUDA tensors and runs its plain version on CPU tensors)."""
+    """The in-program H3 snap, ``snap_kernel.latlng_to_cell_kernel``: one
+    launch of the fused CUDA kernel on CUDA tensors, its plain version on
+    CPU tensors."""
     hexdev.check_res(res)
     return snap_kernel.latlng_to_cell_kernel
 

@@ -20,7 +20,7 @@ on CUDA, PyTorch turns ``tensor / python_float`` into a multiply by the
 reciprocal, which rounds differently from the reference's true division.
 
 The table stage (``_apply_rotations_packed`` / ``_pack_packed``) is shared
-by this snap and the CUDA geometry kernel (``snap_kernel``).  Resolutions
+by this snap and the fused kernel's plain version (``snap_kernel``).  Resolutions
 above 10 (the reference's ``(N, res)`` digit arrays) are not ported yet.
 """
 

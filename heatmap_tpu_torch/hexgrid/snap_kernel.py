@@ -1,20 +1,20 @@
-"""The H3 snap's geometry stage as a CUDA kernel, with its plain version.
+"""The H3 snap as one fused CUDA kernel, with its plain version.
 
-The counterpart of ``heatmap_tpu/hexgrid/pallas_kernel.py``.  The snap has
-two stages:
+The counterpart of ``heatmap_tpu/hexgrid/pallas_kernel.py`` and of the
+table stage the JAX package leaves to XLA.  ``csrc/snap_cell.cu`` takes
+(lat, lng) f32 radians and returns the H3 index words (hi, lo) in one
+launch:
 
-1. **Geometry** (``csrc/snap_geometry.cu``): lat/lng -> unit vector -> best
-   of 20 icosahedron faces -> gnomonic hex-plane coordinates -> the exact
-   int aperture-7 digit chain.  Elementwise float and int work over the
-   points, one thread per point with every intermediate in registers.
-2. **Tables** (PyTorch ops, ``device._apply_rotations_packed`` /
-   ``device._pack_packed``): base-cell and rotation lookups in tables of
-   under 3 KB, then the 64-bit packing.
+1. **Geometry**: lat/lng -> unit vector -> best of 20 icosahedron faces ->
+   gnomonic hex-plane coordinates -> the exact int aperture-7 digit chain.
+2. **Tables**: base-cell and rotation lookups in tables of under 4 KB (one
+   uint8 blob, ``table_blob``), the digit rotations, the 64-bit packing.
 
-``snap_geometry`` launches the kernel on CUDA tensors and runs
-``snap_geometry_reference``, the same arithmetic in PyTorch ops, on CPU
-tensors; any other device raises.  ``snap_geometry.launches`` counts the
-kernel's launches.
+``latlng_to_cell_kernel`` launches the kernel on CUDA tensors and runs
+``latlng_to_cell_reference`` on CPU tensors; any other device raises.
+``latlng_to_cell_kernel.launches`` counts the kernel's launches.  The plain
+version is ``snap_geometry_reference`` (the kernel's geometry op for op)
+followed by the plain snap's table stage (``device``).
 
 The geometry differs from the plain XLA-style snap (``device``) only in
 its expression tree: the face search is an unrolled strict ``d > best``
@@ -41,7 +41,7 @@ from heatmap_tpu_torch.hexgrid.constants import (
 )
 from heatmap_tpu_torch.hexgrid.mathlib import is_class_iii
 
-SOURCE = "hexgrid/csrc/snap_geometry.cu"
+SOURCE = "hexgrid/csrc/snap_cell.cu"
 
 
 @functools.lru_cache(maxsize=1)
@@ -63,9 +63,10 @@ def _res_constants(res: int) -> tuple[float, float, float]:
 
 
 def snap_geometry_reference(lat, lng, res: int):
-    """Plain PyTorch version of the kernel: (N,) f32 radians ->
-    (face, flat27, packed digits), each (N,) int32.  Every product and sum
-    is its own rounded op, as the kernel computes them."""
+    """The geometry stage of the plain version: (N,) f32 radians ->
+    (face, flat27, packed digits), each (N,) int32, the outputs of the
+    reference's Pallas kernel.  Every product and sum is its own rounded
+    op, as the kernel computes them."""
     dev.check_res(res)
     clat = torch.cos(lat)
     vx = clat * torch.cos(lng)
@@ -118,74 +119,124 @@ def snap_geometry_reference(lat, lng, res: int):
     return face, flat.to(torch.int32), p.to(torch.int32)
 
 
+def latlng_to_cell_reference(lat, lng, res: int):
+    """Plain PyTorch version of the fused kernel: (N,) f32 radians -> the H3
+    index words (hi, lo) as int32 bit patterns.  The geometry stage
+    (``snap_geometry_reference``), then the table stage and the packing of
+    the plain snap (``device._apply_rotations_packed`` /
+    ``device._pack_packed``)."""
+    face, flat, p = snap_geometry_reference(lat, lng, res)
+    ijk = ((flat // 9) % 3, (flat // 3) % 3, flat % 3)
+    bc, p = dev._apply_rotations_packed(face, ijk, p, res)
+    return dev._pack_packed(bc, p, res)
+
+
+# The kernel's lookup tables, flat and in this order, one byte an entry, in
+# one blob zero-padded to a multiple of 16 bytes (the offsets in
+# csrc/snap_cell.cu follow this order).
+TABLE_ORDER = ("face_ijk_bc", "face_ijk_rot", "bc_pent", "pent_cw_offset",
+               "ccw_pow")
+
+
+def table_offsets() -> dict[str, tuple[int, int]]:
+    """Each table's (offset, length) in the blob, in bytes."""
+    T = dev._DeviceTables()
+    out, off = {}, 0
+    for name in TABLE_ORDER:
+        size = getattr(T, name).size
+        out[name] = (off, size)
+        off += size
+    return out
+
+
 @functools.lru_cache(maxsize=1)
-def _launcher():
-    lib = _build.load(SOURCE)
-    fn = lib.snap_geometry_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def table_blob() -> np.ndarray:
+    """The uint8 blob of the kernel's lookup tables (every entry fits a
+    byte, which tests/test_torch_hexgrid.py checks by decoding it)."""
+    T = dev._DeviceTables()
+    flat = np.concatenate([getattr(T, name) for name in TABLE_ORDER]
+                          ).astype(np.uint8)
+    blob = np.zeros(-(-flat.size // 16) * 16, np.uint8)
+    blob[:flat.size] = flat
+    return blob
 
 
 @functools.lru_cache(maxsize=None)
-def _host_constants(res: int) -> np.ndarray:
-    """The kernel's constant block for ``res``: 180 face constants, then
+def _blob_on(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(table_blob()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_constants(res: int) -> np.ndarray:
+    """The kernel's f32 constants for ``res``: 180 face constants, then
     cos, sin and scale (kept alive here while native code reads it)."""
     return np.ascontiguousarray(np.concatenate([
         _face_constants().reshape(-1),
         np.asarray(_res_constants(res), np.float32)]))
 
 
-def _check_input(name: str, t: torch.Tensor, n: int, device) -> None:
+@functools.lru_cache(maxsize=1)
+def _launcher():
+    lib = _build.load(SOURCE)
+    fn = lib.snap_cell_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_input(name: str, t: torch.Tensor, device) -> None:
     if t.dtype != torch.float32:
-        raise TypeError(f"{name}: snap kernel takes float32, got {t.dtype}")
-    if t.dim() != 1 or t.shape[0] != n:
-        raise ValueError(f"{name}: expected shape ({n},), got "
+        raise TypeError(f"{name}: the snap takes float32, got {t.dtype}")
+    if t.dim() != 1:
+        raise ValueError(f"{name}: expected shape (N,), got "
                          f"{tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: snap kernel takes contiguous tensors")
-
-
-def snap_geometry(lat, lng, res: int):
-    """(N,) float32 radians -> (face, flat27, packed digits), (N,) int32
-    each: the CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors."""
-    if lat.device.type == "cpu":
-        return snap_geometry_reference(lat, lng, res)
-    if lat.device.type != "cuda":
-        raise ValueError(f"snap_geometry: no kernel for {lat.device}")
-    dev.check_res(res)
-    n = lat.shape[0]
-    _check_input("lat", lat, n, lat.device)
-    _check_input("lng", lng, n, lat.device)
-    out = [torch.empty(n, dtype=torch.int32, device=lat.device)
-           for _ in range(3)]
-    if n == 0:  # nothing to launch, so nothing to count
-        return tuple(out)
-    consts = _host_constants(res)
-    with torch.cuda.device(lat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(lat.data_ptr(), lng.data_ptr(), n, res,
-                          consts.ctypes.data, out[0].data_ptr(),
-                          out[1].data_ptr(), out[2].data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"snap_geometry kernel launch failed: CUDA "
-                           f"error {err}")
-    snap_geometry.launches += 1
-    return tuple(out)
-
-
-snap_geometry.launches = 0
+        raise ValueError(f"{name}: the snap takes contiguous tensors")
 
 
 def latlng_to_cell_kernel(lat, lng, res: int):
-    """(lat, lng) f32 radians -> H3 index words (hi, lo) as int32 bit
-    patterns: the geometry kernel, then the table stage."""
-    face, flat, p = snap_geometry(lat, lng, res)
-    ijk = ((flat // 9) % 3, (flat // 3) % 3, flat % 3)
-    bc, p = dev._apply_rotations_packed(face, ijk, p, res)
-    return dev._pack_packed(bc, p, res)
+    """(N,) float32 radians -> H3 index words (hi, lo), (N,) int32 bit
+    patterns each: the fused CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors; any other device raises."""
+    dev.check_res(res)
+    _check_input("lat", lat, lat.device)
+    _check_input("lng", lng, lat.device)
+    if lng.shape != lat.shape:
+        raise ValueError(f"lat {tuple(lat.shape)} and lng "
+                         f"{tuple(lng.shape)} differ in shape")
+    if lat.device.type == "cpu":
+        return latlng_to_cell_reference(lat, lng, res)
+    if lat.device.type != "cuda":
+        raise ValueError(f"latlng_to_cell_kernel: no kernel for "
+                         f"{lat.device}")
+    n = lat.shape[0]
+    hi, lo = (torch.empty(n, dtype=torch.int32, device=lat.device)
+              for _ in range(2))
+    if n == 0:  # nothing to launch, so nothing to count
+        return hi, lo
+    blob = _blob_on(lat.device)
+    with torch.cuda.device(lat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _launcher()(lat.data_ptr(), lng.data_ptr(), n, res,
+                          _kernel_constants(res).ctypes.data,
+                          blob.data_ptr(), blob.numel(),
+                          _sm_count(lat.device), hi.data_ptr(),
+                          lo.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"snap_cell kernel launch failed: CUDA error "
+                           f"{err}")
+    latlng_to_cell_kernel.launches += 1
+    return hi, lo
+
+
+latlng_to_cell_kernel.launches = 0

@@ -85,10 +85,15 @@ def test_snap_geometry_reference_matches_pallas_interpret():
     half = len(lat) // 2
     assert same[:half].mean() >= BARS["city"], same[:half].mean()
     assert same[half:].mean() >= BARS["global"], same[half:].mean()
-    # the wrapper takes the plain version on CPU tensors
-    via = snap_kernel.snap_geometry(t(lat), t(lng), 9)
-    for a, b in zip(via, got):
-        np.testing.assert_array_equal(a.numpy(), b)
+    # the fused wrapper takes the plain version on CPU tensors: these
+    # geometry triples through the table stage
+    face, flat, p = (t(a) for a in got)
+    ijk = ((flat // 9) % 3, (flat // 3) % 3, flat % 3)
+    want = tdev._pack_packed(*tdev._apply_rotations_packed(face, ijk, p, 9),
+                             9)
+    via = snap_kernel.latlng_to_cell_kernel(t(lat), t(lng), 9)
+    for a, b in zip(via, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def pentagon_points():
@@ -181,13 +186,13 @@ def test_resolutions_above_10_raise():
     with pytest.raises(NotImplementedError):
         tdev.latlng_to_cell_vec(x, x, 11)
     with pytest.raises(NotImplementedError):
-        snap_kernel.snap_geometry(x, x, 11)
+        snap_kernel.latlng_to_cell_kernel(x, x, 11)
 
 
 def test_kernel_wrapper_rejects_other_devices():
     x = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        snap_kernel.snap_geometry(x, x, 9)
+        snap_kernel.latlng_to_cell_kernel(x, x, 9)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -217,3 +222,119 @@ def test_kernel_library_name_follows_the_source(monkeypatch, tmp_path):
     src.write_text("// v2\n")
     assert _build.library_path("k.cu") != first
     assert first.parent == _build.BUILD_DIR
+
+
+# A point that two float32 snaps place in different cells must lie within
+# EDGE_RAD of the edge between those cells: both cells are among the f64
+# snaps of the point and of 8 points EDGE_RAD away around it.  1e-6 rad is
+# 6.4 m on the ground, 16x the ~0.4 m float32 boundary error that the
+# reference documents for its own snaps (pallas_kernel.py).
+EDGE_RAD = 1e-6
+
+
+def assert_mismatches_at_cell_edges(lat, lng, res, got, want):
+    bad = np.nonzero(got != want)[0]
+    if len(bad) == 0:
+        return
+    ang = np.arange(8) * (np.pi / 4)
+    dlat = np.concatenate([[0.0], EDGE_RAD * np.cos(ang)])
+    dlng = np.concatenate([[0.0], EDGE_RAD * np.sin(ang)])
+    la = lat[bad, None].astype(np.float64)
+    ln = lng[bad, None] + dlng / np.cos(la)
+    hi, lo = tdev.latlng_to_cell_vec(t((la + dlat).reshape(-1)),
+                                     t(ln.reshape(-1)), res,
+                                     dtype=torch.float64)
+    near = as_u64(hi.numpy(), lo.numpy()).reshape(len(bad), 9)
+    edge = ((near == got[bad, None]).any(1)
+            & (near == want[bad, None]).any(1))
+    assert edge.all(), (res, bad[~edge][:5], got[bad][~edge][:5],
+                        want[bad][~edge][:5])
+
+
+@pytest.mark.parametrize("res", range(11))
+@pytest.mark.parametrize("ref", ["pallas_interpret", "xla"])
+def test_latlng_to_cell_reference_matches_jax(ref, res):
+    """The fused kernel's plain version against both JAX snaps on pentagon
+    neighbourhoods, city and global points, at the north-star bars."""
+    lat, lng = pentagon_points()
+    n_pent = len(lat) - 2 * N_REGION
+    if ref == "xla":
+        want = jdev.latlng_to_cell_vec(lat, lng, res)
+    else:
+        want = pallas_kernel.latlng_to_cell_pallas(lat, lng, res,
+                                                   interpret=True)
+    want = as_u64(*want)
+    hi, lo = snap_kernel.latlng_to_cell_reference(t(lat), t(lng), res)
+    assert hi.dtype == lo.dtype == torch.int32
+    got = as_u64(hi.numpy(), lo.numpy())
+    same = got == want
+    shares = {"pentagon": same[:n_pent].mean(),
+              "city": same[n_pent:n_pent + N_REGION].mean(),
+              "global": same[n_pent + N_REGION:].mean()}
+    bars = dict(BARS, pentagon=BARS["global"])
+    for region, share in shares.items():
+        assert share >= bars[region], (ref, res, region, share)
+    assert_mismatches_at_cell_edges(lat, lng, res, got, want)
+
+
+def test_table_blob_decodes_to_the_tables():
+    """The uint8 blob the wrapper hands the kernel holds exactly the plain
+    snap's tables, at the offsets csrc/snap_cell.cu reads them from."""
+    import re
+
+    T = tdev._DeviceTables()
+    blob = snap_kernel.table_blob()
+    assert blob.dtype == np.uint8 and blob.size % 16 == 0
+    offsets = snap_kernel.table_offsets()
+    for name, (off, size) in offsets.items():
+        np.testing.assert_array_equal(
+            blob[off:off + size].astype(np.int32), getattr(T, name),
+            err_msg=name)
+    end = max(off + size for off, size in offsets.values())
+    assert not blob[end:].any()
+    src = (Path(snap_kernel.__file__).parent / "csrc" / "snap_cell.cu"
+           ).read_text()
+    const = {m[1]: int(m[2]) for m in
+             re.finditer(r"constexpr \w+ (k\w+) = (\d+);", src)}
+    cu_names = {"face_ijk_bc": "kBcOff", "face_ijk_rot": "kRotOff",
+                "bc_pent": "kPentOff", "pent_cw_offset": "kCwOff",
+                "ccw_pow": "kPowOff"}
+    for name, (off, _) in offsets.items():
+        assert const[cu_names[name]] == off, name
+    assert const["kBlobBytes"] == blob.size
+    assert const["kModeCell"] == ttables.H3_MODE_CELL
+    from heatmap_tpu_torch.hexgrid.mathlib import K_AXES_DIGIT
+    assert const["kKAxesDigit"] == K_AXES_DIGIT
+
+
+@pytest.mark.parametrize("res", [0, 9, 10])
+def test_kernel_wrapper_runs_the_plain_version_on_cpu(res):
+    """On CPU tensors the wrapper returns the plain version's words and
+    launches (and counts) nothing."""
+    lat, lng = pentagon_points()
+    before = snap_kernel.latlng_to_cell_kernel.launches
+    got = snap_kernel.latlng_to_cell_kernel(t(lat), t(lng), res)
+    want = snap_kernel.latlng_to_cell_reference(t(lat), t(lng), res)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and a.shape == (len(lat),)
+        assert torch.equal(a, b)
+    assert snap_kernel.latlng_to_cell_kernel.launches == before
+
+
+BAD_INPUTS = {
+    "float64": (lambda x: (x.double(), x.double(), 9), TypeError),
+    "int32": (lambda x: (x, x.int(), 9), TypeError),
+    "2d": (lambda x: (x.reshape(2, 4), x.reshape(2, 4), 9), ValueError),
+    "shapes_differ": (lambda x: (x, x[:4], 9), ValueError),
+    "devices_differ": (lambda x: (x, x.to("meta"), 9), ValueError),
+    "non_contiguous": (lambda x: (x[::2], x[::2], 9), ValueError),
+    "res_11": (lambda x: (x, x, 11), NotImplementedError),
+    "res_negative": (lambda x: (x, x, -1), NotImplementedError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_INPUTS))
+def test_kernel_wrapper_rejects_bad_inputs(case):
+    make, err = BAD_INPUTS[case]
+    with pytest.raises(err):
+        snap_kernel.latlng_to_cell_kernel(*make(torch.zeros(8)))

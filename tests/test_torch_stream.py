@@ -5,8 +5,8 @@ Both runtimes fold the same small ``SyntheticSource`` stream (timestamps
 over several 5-minute windows, so windows close and evict) into a
 ``MemoryStore``.  The reference runs with HEATMAP_H3_IMPL=xla,
 HEATMAP_MERGE_IMPL=sort, HEATMAP_FASTPATH=0 and HEATMAP_EMIT_FLUSH_K=1; the
-port has one route for each of these, the same (its snap is the geometry
-kernel's plain version on the CPU, then the table stage).
+port has one route for each of these, the same (its snap is the fused snap
+kernel's plain version on the CPU: the geometry, then the table stage).
 
 The two snaps are not bit-identical on the CPU: the face search differs in
 its expression tree (an unrolled compare against a matmul plus argmax), and
@@ -139,6 +139,24 @@ def test_runtime_matches_jax_runtime(tmp_path, reference_env):
             assert abs(a - b) <= 1e-5, (k, a, b)
         assert d["windowEnd"] == r["windowEnd"]
         assert d["staleAt"] == r["staleAt"]
+
+
+def test_ops_per_batch_counts_the_dispatched_ops():
+    """``profile_fold.ops_per_batch`` counts every PyTorch op of one batch
+    and the port's own kernel launches, which the CPU makes none of: so on
+    the CPU it covers at least the plain snap that runs inside the fold."""
+    from heatmap_tpu_torch.profile_fold import _CountOps, ops_per_batch
+
+    rt = MicroBatchRuntime(load_config(None, **AXES),
+                           SyntheticSource(**SOURCE_ARGS), MemoryStore(),
+                           device="cpu")
+    assert rt.step_once()
+    got = ops_per_batch(rt)
+    x = torch.zeros(BATCH)
+    with _CountOps() as snap:
+        snap_kernel.latlng_to_cell_reference(x, x, RES)
+    assert got["kernel_launches"] == 0
+    assert got["ops"] == got["torch_ops"] > snap.n > 1000, (got, snap.n)
 
 
 def test_entry_point_needs_a_card_or_cpu(monkeypatch):
