@@ -16,15 +16,25 @@ Phases, one JSON line each:
                 the first synthetic_backfill batch: exact.
 3. fold_check   the fold on the card against the fold on the CPU (the plain
                 versions the CPU tests hold against the JAX package) on a
-                small stream, both fed the same cell keys.
+                small stream, both fed the same cell keys, for each merge
+                impl (sort, rank, probe) with the fast path on and off: the
+                six runs on the card byte-identical to one another, each
+                within the bars of the CPU run, and the fast path taking
+                each of its tiers 1, 2 and 3.
 4. fold         the synthetic_backfill pipeline end to end through
-                heatmap_tpu_torch.stream: 10M events, 20 batches of 2^19,
-                a 2^20-row slab with 64 histogram bins.  The snap kernel
-                must launch once a batch, no group may overflow, and the
-                tile docs' counts must sum to the events aggregated.  Then,
-                outside the timed run, the ops one batch issues.
-5. determinism  the first 3 batches twice from a fresh slab: the packed
-                emits must be byte-identical.
+                heatmap_tpu_torch.stream with its defaults (the fast path
+                over the auto impl, an emit ring 8 batches deep with
+                live-prefix pulls): 10M events, 20 batches of 2^19, a
+                2^20-row slab with 64 histogram bins.  The snap kernel must
+                launch once a batch, no group may overflow, the tile docs'
+                counts must sum to the events aggregated, and the pulls
+                must cover every batch.  Then, outside the timed run, the
+                ops each of the first batches dispatches (by tier) and the
+                synchronisations of a steady batch that flushes nothing:
+                exactly one, the fold's tier-predicate read.
+5. determinism  the first 3 batches twice from a fresh slab, then a flush:
+                the host matrices of the two runs must be byte-identical,
+                batch by batch.
 
 Then one line listing every kernel (launches on the main path, agreement
 with its plain version, its time, the plain version's, the bound), the
@@ -238,68 +248,156 @@ def phase_snap(torch, snap_kernel, dev):
     return out
 
 
-def phase_fold_check(torch, dev):
-    """The fold on the card against the fold on the CPU on a small stream
-    that crosses window ends, both fed the same (kernel-computed) keys."""
+# fold_check's stream: N events a batch over a 2^11-row slab
+FC_N, FC_CAP, FC_T0 = 1 << 11, 1 << 11, 1_699_999_800   # T0: a window start
+
+
+def fold_check_stream(rng):
+    """Batches of (lat, lng radians, speed, ts, valid, hi, lo) over cells
+    made from ``rng`` (res-9 index words with random variable bits) whose
+    tiers under the fast path are 3 (empty slab), 1 (the same cells), 2 (a
+    few new cells), 3 (a burst of 1500 new cells), 1 (half of them late),
+    2 (a new window), 3 (the first window evicts), 3, 3 (fresh cells
+    overflow the slab) and 2."""
+    n = FC_N
+
+    def cells(k):
+        var = rng.choice((1 << 20) - 1, k, replace=False).astype(np.uint32)
+        return (np.uint32(0x08900000) | var,
+                rng.integers(0, 2**32, k, dtype=np.uint64).astype(np.uint32))
+
+    def batch(pool, ts0, n_live=n):
+        idx = rng.integers(0, len(pool[0]), n)
+        return dict(
+            hi=pool[0][idx], lo=pool[1][idx],
+            ts=(ts0 + rng.integers(0, 200, n)).astype(np.int32),
+            valid=np.arange(n) < n_live,
+            speed=rng.uniform(0.0, 120.0, n).astype(np.float32),
+            lat=np.radians(rng.uniform(42.3, 42.4, n)).astype(np.float32),
+            lng=np.radians(rng.uniform(-71.1, -71.0, n)).astype(np.float32))
+
+    def splice(b, other, k):
+        out = {key: v.copy() for key, v in b.items()}
+        idx = rng.choice(n, k, replace=False)
+        for key in out:
+            out[key][idx] = other[key][idx]
+        return out
+
+    a, new, burst, c = (cells(k) for k in (200, 50, 1500, 100))
+    t0 = FC_T0
+    b3 = batch(a, t0)
+    b3["hi"][:1500], b3["lo"][:1500] = burst
+    return [batch(a, t0), batch(a, t0),
+            splice(batch(a, t0), batch(new, t0), 60), b3,
+            splice(batch(a, t0), batch(a, t0 - 2000), n // 2),
+            batch(c, t0 + 900, n_live=500), batch(c, t0 + 900),
+            batch(cells(n), t0 + 900), batch(cells(n), t0 + 900),
+            batch(c, t0 + 900)]
+
+
+def fold_run(torch, step, batches, device, impl, fastpath):
+    """Fold ``batches`` through MultiAggregator.step_packed_all on
+    ``device`` with the given routing; returns per batch (packed host
+    matrix, state as host bit patterns, tier taken or None)."""
     from heatmap_tpu_torch.engine.multi import (MultiAggregator,
                                                 stats_from_packed)
-    from heatmap_tpu_torch.engine.step import I32_MIN
-    from heatmap_tpu_torch.hexgrid import snap_kernel
-    from heatmap_tpu_torch.stream.source import SyntheticSource
 
-    n, cap, res = 1 << 12, 1 << 14, MAIN_RES
-    src = SyntheticSource(n_events=4 * n, n_vehicles=300,
-                          events_per_second=8, seed=SEED)
-    aggs = {d: MultiAggregator([(res, 300)], cap, emit_capacity=n,
-                               hist_bins=64, device=d)
-            for d in (dev, torch.device("cpu"))}
-    max_ts, worst, n_late_evict = I32_MIN, 0.0, 0
-    for _ in range(4):
-        cols = src.poll(n)
-        lat, lng = (torch.from_numpy(a).to(dev)
-                    for a in (cols.lat_rad, cols.lng_rad))
-        hi, lo = snap_kernel.latlng_to_cell_kernel(lat, lng, res)
-        cutoff = max_ts - 600 if max_ts > I32_MIN else I32_MIN
-        packed = {}
-        for d, agg in aggs.items():
-            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d)
-            packed[d] = agg.step_packed_all(
-                t(cols.lat_rad), t(cols.lng_rad), t(cols.speed_kmh),
-                t(cols.ts_s), torch.ones(n, dtype=torch.bool, device=d),
-                cutoff, prekeys={res: (hi.to(d), lo.to(d))}
-            ).cpu().numpy().view(np.uint32)[0]
-        g, c = packed[dev], packed[torch.device("cpu")]
-        int_cols = [0, 1, 2, 3, 8, 10, 11, 12]
-        float_cols = [4, 5, 6, 7, 9, 10, 11, 12]
-        if not (np.array_equal(g[0], c[0])
-                and np.array_equal(g[1:, int_cols], c[1:, int_cols])):
-            raise AssertionError("fold on the card: integer lanes or "
-                                 "anchors differ from the CPU fold")
-        gf = np.ascontiguousarray(g[1:, float_cols]).view(np.float32)
-        cf = np.ascontiguousarray(c[1:, float_cols]).view(np.float32)
-        if not (np.isfinite(gf).all() and np.isfinite(cf).all()):
-            raise AssertionError("non-finite float lane in a packed emit")
-        np.testing.assert_array_max_ulp(gf, cf, maxulp=2)
-        worst = max(worst, float(np.abs(gf - cf).max()))
-        st = stats_from_packed(g)
-        n_late_evict += st.n_evicted
-        max_ts = max(max_ts, st.batch_max_ts)
-    if n_late_evict == 0:
-        raise AssertionError("fold_check stream evicted no window")
-    emit({"phase": "fold_check", "batches": 4, "evicted": n_late_evict,
+    saved = step.MERGE_IMPL, step.FASTPATH
+    step.MERGE_IMPL, step.FASTPATH = impl, fastpath
+    try:
+        agg = MultiAggregator([(MAIN_RES, 300)], FC_CAP, emit_capacity=FC_N,
+                              hist_bins=64, device=device)
+        max_ts, out = step.I32_MIN, []
+        for b in batches:
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(
+                a.view(np.int32) if a.dtype == np.uint32 else a)).to(device)
+            cutoff = max_ts - 600 if max_ts > step.I32_MIN else max_ts
+            tiers = dict(step._merge_fastpath.tiers)
+            packed = agg.step_packed_all(
+                t(b["lat"]), t(b["lng"]), t(b["speed"]), t(b["ts"]),
+                t(b["valid"]), cutoff,
+                prekeys={MAIN_RES: (t(b["hi"]), t(b["lo"]))})
+            taken = [k for k, v in step._merge_fastpath.tiers.items()
+                     if v != tiers[k]]
+            host = packed.cpu().numpy().view(np.uint32)[0]
+            state = [(f.view(torch.int32) if f.dtype == torch.float32
+                      else f).cpu().numpy() for f in agg.states[0]]
+            out.append((host, state, taken[0] if taken else None))
+            max_ts = max(max_ts, stats_from_packed(host).batch_max_ts)
+        return out
+    finally:
+        step.MERGE_IMPL, step.FASTPATH = saved
+
+
+def phase_fold_check(torch, dev):
+    """Every route of the fold on the card against the fold on the CPU, on
+    a stream that takes each fast-path tier, both fed the same keys."""
+    from heatmap_tpu_torch.engine import step
+    from heatmap_tpu_torch.engine.multi import stats_from_packed
+
+    batches = fold_check_stream(np.random.default_rng(SEED))
+    cpu = fold_run(torch, step, batches, torch.device("cpu"), "sort", False)
+    combos = [(i, f) for i in ("sort", "rank", "probe") for f in (True,
+                                                                  False)]
+    runs = {c: fold_run(torch, step, batches, dev, *c) for c in combos}
+    int_cols = [0, 1, 2, 3, 8, 10, 11, 12]
+    float_cols = [4, 5, 6, 7, 9, 10, 11, 12]
+    worst = 0.0
+    first = runs[combos[0]]
+    for combo, run in runs.items():
+        for k, ((g, gs, _), (g0, gs0, _), (c, cs, _)) in enumerate(
+                zip(run, first, cpu)):
+            if not (np.array_equal(g, g0)
+                    and all(np.array_equal(x, y) for x, y in zip(gs, gs0))):
+                raise AssertionError(f"fold on the card: {combo} differs "
+                                     f"from {combos[0]} at batch {k}")
+            if not (np.array_equal(g[0], c[0])
+                    and np.array_equal(g[1:, int_cols], c[1:, int_cols])):
+                raise AssertionError(f"fold on the card, {combo}, batch "
+                                     f"{k}: integer lanes or anchors differ "
+                                     f"from the CPU fold")
+            gf = np.ascontiguousarray(g[1:, float_cols]).view(np.float32)
+            cf = np.ascontiguousarray(c[1:, float_cols]).view(np.float32)
+            if not (np.isfinite(gf).all() and np.isfinite(cf).all()):
+                raise AssertionError("non-finite float lane in a packed "
+                                     "emit")
+            np.testing.assert_array_max_ulp(gf, cf, maxulp=2)
+            worst = max(worst, float(np.abs(gf - cf).max()))
+    tiers = {f"{i}": [t for _, _, t in runs[(i, True)]]
+             for i in ("sort", "rank", "probe")}
+    for impl, seq in tiers.items():
+        if not {1, 2, 3} <= set(seq):
+            raise AssertionError(f"fast path over {impl} took tiers {seq}")
+    stats = [stats_from_packed(g) for g, _, _ in first]
+    evicted = sum(s.n_evicted for s in stats)
+    late = sum(s.n_late for s in stats)
+    overflow = sum(s.state_overflow for s in stats)
+    if not (evicted and late and overflow):
+        raise AssertionError(f"fold_check stream: evicted {evicted}, late "
+                             f"{late}, overflow {overflow}")
+    emit({"phase": "fold_check", "batches": len(batches),
+          "routes_identical_on_card": len(combos), "tiers": tiers,
+          "evicted": evicted, "late": late, "overflow": overflow,
           "max_abs_err_float_lanes": worst})
 
 
 def phase_fold(torch, run_pipeline, snap_kernel):
+    from heatmap_tpu_torch.engine import step
+    from heatmap_tpu_torch.profile_fold import per_batch_counts
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     snap_kernel.latlng_to_cell_kernel.launches = 0
+    for t in step._merge_fastpath.tiers:
+        step._merge_fastpath.tiers[t] = 0
     t0 = time.monotonic()
     rt, store = run_pipeline("synthetic_backfill", device="cuda")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = snap_kernel.latlng_to_cell_kernel.launches
+    tiers = dict(step._merge_fastpath.tiers)
     m = rt.metrics
+    pulls = m["pulls"]
     docs = store._tiles
     total = sum(d["count"] for d in docs.values())
     if launches != m["batches"]:
@@ -310,6 +408,15 @@ def phase_fold(torch, run_pipeline, snap_kernel):
     if not (total == m["events_valid"] == 10_000_000):
         raise AssertionError(f"counts not conserved: docs {total}, "
                              f"aggregated {m['events_valid']}")
+    if sum(tiers.values()) != m["batches"] or not tiers[3]:
+        raise AssertionError(f"fast-path tiers {tiers} in {m['batches']} "
+                             f"batches (the first must take tier 3)")
+    if pulls["batches"] != m["batches"] or not rt._prefix_pull:
+        raise AssertionError(f"emit pulls {pulls} for {m['batches']} "
+                             f"batches (prefix pull: {rt._prefix_pull})")
+    bytes_per_batch = pulls["bytes"] / m["batches"]
+    if bytes_per_batch >= 1 << 20:
+        raise AssertionError(f"{bytes_per_batch} bytes pulled a batch")
     bad = [d["_id"] for d in docs.values()
            if not all(np.isfinite(v) for v in (
                d["avgSpeedKmh"], d["stddevSpeedKmh"], d["p95SpeedKmh"],
@@ -317,60 +424,48 @@ def phase_fold(torch, run_pipeline, snap_kernel):
     if bad:
         raise AssertionError(f"non-finite doc fields: {bad[:3]}")
     del rt, store
+    torch.cuda.empty_cache()
+    counts = per_batch_counts()
+    syncs = counts["syncs"]
+    if not (syncs["syncs"] == syncs["predicate_reads"] == 1
+            and not syncs["flushed"]):
+        raise AssertionError(f"a steady batch that flushes nothing must "
+                             f"synchronise once, on its predicate read: "
+                             f"{syncs}")
     out = {"phase": "fold", "events": m["events_valid"],
            "batches": m["batches"], "wall_s": wall,
            "events_per_s": m["events_valid"] / wall,
            "p50_batch_ms": m["p50_batch_ms"], "tiles": len(docs),
            "tiles_emitted": m["tiles_emitted"],
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-           "snap_launches": launches, "per_batch": count_batch_ops(torch)}
+           "snap_launches": launches, "tiers": tiers, "pulls": pulls,
+           "bytes_pulled_per_batch": bytes_per_batch,
+           "per_batch": counts["ops"], "steady_batch_syncs": syncs}
     emit(out)
     return out
 
 
-def count_batch_ops(torch):
-    """The ops one synthetic_backfill batch issues on the card (its second
-    batch, after the first has made the cached tables), outside any timed
-    run."""
-    from heatmap_tpu_torch.models.pipelines import get_pipeline
-    from heatmap_tpu_torch.profile_fold import ops_per_batch
-    from heatmap_tpu_torch.sink.memory import MemoryStore
-    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
-
-    p = get_pipeline("synthetic_backfill")
-    rt = MicroBatchRuntime(p.config, p.make_source(p.config), MemoryStore(),
-                           device="cuda")
-    if not rt.step_once():
-        raise AssertionError("synthetic_backfill ran dry")
-    out = ops_per_batch(rt)
-    del rt
-    torch.cuda.empty_cache()
-    return out
-
-
 def phase_determinism(torch):
-    from heatmap_tpu_torch.models.pipelines import get_pipeline
-    from heatmap_tpu_torch.sink.memory import MemoryStore
-    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+    """The first 3 batches twice from a fresh slab: the flushed host
+    matrices must be byte-identical, batch by batch."""
+    from heatmap_tpu_torch.profile_fold import new_runtime
 
-    p = get_pipeline("synthetic_backfill")
     runs = []
     for _ in range(2):
-        rt = MicroBatchRuntime(p.config, p.make_source(p.config),
-                               MemoryStore(), device="cuda")
-        packs = []
+        rt = new_runtime()
         for _ in range(3):
             if not rt.step_once():
                 raise AssertionError("synthetic_backfill ran dry")
-            packs.append(rt.last_packed.tobytes())
-        runs.append(packs)
+        rt.flush_pending()
+        runs.append([b"".join(m.tobytes() for m in bufs)
+                     for bufs, _ in rt.last_flush])
         del rt
         torch.cuda.empty_cache()
     same = [a == b for a, b in zip(*runs)]
-    if not all(same):
-        raise AssertionError(f"packed emits differ between runs: {same}")
+    if len(same) != 3 or not all(same):
+        raise AssertionError(f"flushed emits differ between runs: {same}")
     emit({"phase": "determinism", "batches": 3, "identical": same,
-          "bytes_per_batch": len(runs[0][0])})
+          "bytes_per_batch": [len(b) for b in runs[0]]})
 
 
 def main() -> int:

@@ -2,9 +2,7 @@
 
 A copy of the part of ``heatmap_tpu/config.py`` that the streaming slice
 uses, with the same environment names and defaults, so one environment
-configures both packages the same way.  The port pulls the packed emits of
-every batch (the reference's HEATMAP_EMIT_FLUSH_K=1), so it has no
-flush-depth field.
+configures both packages the same way.
 """
 
 from __future__ import annotations
@@ -42,6 +40,13 @@ class Config:
     # and speeds >= the max saturate into the last bin.
     speed_hist_bins: int = 64
     speed_hist_max_kmh: float = 256.0
+    # emit pulls: "prefix" pulls the head rows, then one power-of-two
+    # bucket of live rows; "full" the whole matrix; "auto" is prefix on a
+    # CUDA device and full on the CPU (where a second copy saves nothing)
+    emit_pull: str = "auto"
+    # depth of the device-resident emit ring: the packed emits of up to K
+    # batches stay on the device and are pulled in one flush
+    emit_flush_k: int = 8
 
     def pair_grid(self, res: int, wmin: int) -> str:
         """Sink grid label for a (res, window) pair: "h3r{res}" for the
@@ -65,7 +70,15 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         state_capacity_log2=_int(e, "STATE_CAPACITY_LOG2", Config.state_capacity_log2),
         speed_hist_bins=_int(e, "SPEED_HIST_BINS", Config.speed_hist_bins),
         speed_hist_max_kmh=_float(e, "SPEED_HIST_MAX_KMH", Config.speed_hist_max_kmh),
+        emit_pull=e.get("HEATMAP_EMIT_PULL", Config.emit_pull),
+        emit_flush_k=_int(e, "HEATMAP_EMIT_FLUSH_K", Config.emit_flush_k),
     )
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    if cfg.emit_pull not in ("auto", "full", "prefix"):
+        raise ValueError(f"HEATMAP_EMIT_PULL must be auto|full|prefix, "
+                         f"got {cfg.emit_pull!r}")
+    if cfg.emit_flush_k < 1:
+        raise ValueError(
+            f"HEATMAP_EMIT_FLUSH_K must be >= 1, got {cfg.emit_flush_k}")
     return cfg

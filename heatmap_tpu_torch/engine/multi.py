@@ -3,7 +3,8 @@
 The counterpart of ``heatmap_tpu/engine/multi.py`` for one device: the H3
 snap runs once per unique resolution, each pair's ``merge_batch`` folds its
 own slab, and the per-pair packed emits stack into one (P, E+1, 13) int32
-matrix, so the whole batch's output crosses to the host in one pull.
+matrix, so the whole batch's output is one tensor for the stream
+runtime's emit ring to park and pull.
 """
 
 from __future__ import annotations

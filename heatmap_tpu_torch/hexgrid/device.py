@@ -105,10 +105,13 @@ def _tables_on(device: torch.device) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=None)
 def scalar_tensor(value: float, dtype: torch.dtype,
                   device: torch.device) -> torch.Tensor:
-    """A 0-dim tensor of ``value`` on ``device``, made once: a divisor that
-    keeps true division on CUDA (see the module docstring)."""
+    """A 0-dim tensor of ``value`` on ``device``, made once (its host copy
+    waits on the device, so the fold must not make it per batch): a
+    divisor that keeps true division on CUDA (see the module docstring).
+    Callers only read it."""
     return torch.tensor(value, dtype=dtype, device=device)
 
 

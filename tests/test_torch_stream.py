@@ -3,10 +3,12 @@ independence from JAX.
 
 Both runtimes fold the same small ``SyntheticSource`` stream (timestamps
 over several 5-minute windows, so windows close and evict) into a
-``MemoryStore``.  The reference runs with HEATMAP_H3_IMPL=xla,
-HEATMAP_MERGE_IMPL=sort, HEATMAP_FASTPATH=0 and HEATMAP_EMIT_FLUSH_K=1; the
-port has one route for each of these, the same (its snap is the fused snap
-kernel's plain version on the CPU: the geometry, then the table stage).
+``MemoryStore``, twice: pinned (HEATMAP_MERGE_IMPL=sort, HEATMAP_FASTPATH=0,
+HEATMAP_EMIT_FLUSH_K=1, which both packages read), and each with its own
+defaults (auto, the fast path on, an emit ring 8 batches deep).  The
+reference's snap is pinned to HEATMAP_H3_IMPL=xla; the port has one snap
+route (the fused snap kernel's plain version on the CPU: the geometry,
+then the table stage).
 
 The two snaps are not bit-identical on the CPU: the face search differs in
 its expression tree (an unrolled compare against a matmul plus argmax), and
@@ -41,10 +43,12 @@ from heatmap_tpu.sink import MemoryStore as JaxMemoryStore
 from heatmap_tpu.stream import MicroBatchRuntime as JaxRuntime
 from heatmap_tpu.stream import SyntheticSource as JaxSyntheticSource
 from heatmap_tpu_torch.config import load_config
+from heatmap_tpu_torch.engine import step as tstep
 from heatmap_tpu_torch.hexgrid import snap_kernel
 from heatmap_tpu_torch.sink.memory import MemoryStore
+from heatmap_tpu_torch.stream.events import columns_from_arrays
 from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
-from heatmap_tpu_torch.stream.source import SyntheticSource
+from heatmap_tpu_torch.stream.source import Source, SyntheticSource
 
 REPO = Path(__file__).resolve().parents[1]
 RES = 9
@@ -59,34 +63,53 @@ AXES = dict(city="bos", h3_res=RES, resolutions=(RES,), windows_minutes=(5,),
             speed_hist_bins=64)
 
 
-@pytest.fixture
-def reference_env(monkeypatch):
-    for k, v in (("HEATMAP_H3_IMPL", "xla"), ("HEATMAP_MERGE_IMPL", "sort"),
-                 ("HEATMAP_FASTPATH", "0"), ("HEATMAP_EMIT_FLUSH_K", "1")):
-        monkeypatch.setenv(k, v)
+KNOBS = ("HEATMAP_MERGE_IMPL", "HEATMAP_FASTPATH", "HEATMAP_EMIT_FLUSH_K",
+         "HEATMAP_EMIT_PULL")
+
+
+def _pin_reference(monkeypatch, pinned: dict):
+    monkeypatch.setenv("HEATMAP_H3_IMPL", "xla")
+    for k in KNOBS:
+        if k in pinned:
+            monkeypatch.setenv(k, pinned[k])
+        else:
+            monkeypatch.delenv(k, raising=False)
     # the JAX runtime pins these module slots at init; restore them after
     for slot in ("SNAP_IMPL", "MERGE_IMPL", "FASTPATH", "MERGE_BANK_PIN"):
         monkeypatch.setattr(jstep, slot, getattr(jstep, slot))
+    monkeypatch.setattr(tstep, "MERGE_IMPL", None)
+    monkeypatch.setattr(tstep, "FASTPATH", None)
+
+
+@pytest.fixture
+def reference_env(monkeypatch):
+    _pin_reference(monkeypatch, {"HEATMAP_MERGE_IMPL": "sort",
+                                 "HEATMAP_FASTPATH": "0",
+                                 "HEATMAP_EMIT_FLUSH_K": "1"})
+
+
+@pytest.fixture
+def default_env(monkeypatch):
+    _pin_reference(monkeypatch, {})
 
 
 def run_jax(tmp_path):
     cfg = jax_load_config(None, checkpoint_dir=str(tmp_path / "ckpt"),
-                          store="memory", state_max_log2=CAP_LOG2,
-                          emit_flush_k=1, **AXES)
+                          store="memory", state_max_log2=CAP_LOG2, **AXES)
     store = JaxMemoryStore()
     rt = JaxRuntime(cfg, JaxSyntheticSource(**SOURCE_ARGS), store,
                     checkpoint_every=0)
     rt.run()
-    return store._tiles
+    return store._tiles, cfg
 
 
-def run_port():
-    cfg = load_config(None, **AXES)
+def run_port(source_args=SOURCE_ARGS, axes=AXES, **over):
+    cfg = load_config(None, **axes, **over)
     store = MemoryStore()
-    rt = MicroBatchRuntime(cfg, SyntheticSource(**SOURCE_ARGS), store,
+    rt = MicroBatchRuntime(cfg, SyntheticSource(**source_args), store,
                            device="cpu")
     rt.run()
-    return store._tiles, rt.metrics
+    return store._tiles, rt
 
 
 def snap_disagreements():
@@ -109,9 +132,8 @@ def snap_disagreements():
     return touched, len(bad) / N_EVENTS
 
 
-def test_runtime_matches_jax_runtime(tmp_path, reference_env):
-    ref_docs = run_jax(tmp_path)
-    docs, metrics = run_port()
+def assert_docs_match(ref_docs, docs, metrics):
+    """The module docstring's bars."""
     touched, bad_share = snap_disagreements()
     assert bad_share <= 0.002, bad_share
 
@@ -139,6 +161,113 @@ def test_runtime_matches_jax_runtime(tmp_path, reference_env):
             assert abs(a - b) <= 1e-5, (k, a, b)
         assert d["windowEnd"] == r["windowEnd"]
         assert d["staleAt"] == r["staleAt"]
+
+
+def test_runtime_matches_jax_runtime(tmp_path, reference_env):
+    ref_docs, ref_cfg = run_jax(tmp_path)
+    docs, rt = run_port()
+    assert ref_cfg.emit_flush_k == rt.cfg.emit_flush_k == 1
+    assert rt.pulls["flushes"] == rt.counters["batches"]
+    assert_docs_match(ref_docs, docs, rt.metrics)
+
+
+def test_runtime_defaults_match_jax_defaults(tmp_path, default_env):
+    """Each runtime with its own defaults: the fast path over auto (rank
+    here: the slab holds 4x the batch), an emit ring 8 batches deep."""
+    ref_docs, ref_cfg = run_jax(tmp_path)
+    tiers = dict(tstep._merge_fastpath.tiers)
+    docs, rt = run_port()
+    assert ref_cfg.emit_flush_k == rt.cfg.emit_flush_k == 8
+    assert rt.cfg.emit_pull == "auto" and not rt._prefix_pull
+    taken = {t: n - tiers[t] for t, n in tstep._merge_fastpath.tiers.items()}
+    assert sum(taken.values()) == rt.counters["batches"]
+    assert rt.pulls["batches"] == rt.counters["batches"]
+    assert rt.pulls["flushes"] < rt.counters["batches"]
+    assert_docs_match(ref_docs, docs, rt.metrics)
+
+
+# one 5-minute window, 10 batches: only the ring's depth triggers flushes
+ONE_WINDOW = dict(n_events=10 * 1024, n_vehicles=300,
+                  events_per_second=1024, t0=1_700_000_000 - 200)
+SMALL_AXES = dict(AXES, batch_size=1024, state_capacity_log2=13)
+
+
+# two resolutions x two window lengths: four pairs share each pull
+PAIRS_AXES = dict(AXES, resolutions=(8, 9), windows_minutes=(1, 5))
+
+
+@pytest.mark.parametrize("source_args,axes", [
+    (ONE_WINDOW, SMALL_AXES), (SOURCE_ARGS, AXES), (SOURCE_ARGS, PAIRS_AXES)],
+    ids=["one_window", "windows", "four_pairs"])
+def test_flush_depth_does_not_change_results(default_env, source_args,
+                                             axes):
+    """K=1 (full pulls) and K=8 (prefix pulls) give the same docs and the
+    same counters; only the pulls differ."""
+    docs1, rt1 = run_port(source_args, axes, emit_flush_k=1,
+                          emit_pull="full")
+    docs8, rt8 = run_port(source_args, axes, emit_flush_k=8,
+                          emit_pull="prefix")
+    assert rt8._prefix_pull and not rt1._prefix_pull
+    assert docs8 == docs1
+    assert rt8.counters == rt1.counters
+    assert rt8.max_event_ts == rt1.max_event_ts
+    batches = rt1.counters["batches"]
+    assert rt1.pulls["flushes"] == rt1.pulls["batches"] == batches
+    assert rt8.pulls["batches"] == batches
+    assert rt8.pulls["bytes"] < rt1.pulls["bytes"]
+    if source_args is ONE_WINDOW:
+        # flushes at the 9th batch (ring full) and on the idle poll that
+        # finds the source exhausted
+        assert rt8.pulls == dict(rt8.pulls, flushes=2, full=1, idle=1,
+                                 watermark=0, close=0)
+    else:
+        # the stream crosses windows: closing windows flush early
+        assert rt8.pulls["watermark"] > 0
+
+
+class _ListSource(Source):
+    """Serves the given batches in order, an empty poll for each None."""
+
+    def __init__(self, batches):
+        self._batches = list(batches)
+
+    def poll(self, max_events):
+        b = self._batches.pop(0) if self._batches else None
+        return b if b is not None else columns_from_arrays([], [], [], [])
+
+    @property
+    def exhausted(self):
+        return not self._batches
+
+
+def test_idle_poll_flushes(default_env):
+    cols = SyntheticSource(**ONE_WINDOW).poll(1024)
+    store = MemoryStore()
+    rt = MicroBatchRuntime(load_config(None, **SMALL_AXES),
+                           _ListSource([cols, None, cols]), store,
+                           device="cpu")
+    assert rt.step_once()
+    assert len(rt._ring) == 1 and store.n_tiles == 0
+    assert not rt.step_once()                # idle: the parked batch lands
+    assert len(rt._ring) == 0 and rt.pulls["idle"] == 1
+    assert store.n_tiles > 0
+    assert rt.step_once()
+    rt.close()
+    assert rt.pulls == dict(rt.pulls, flushes=2, idle=1, close=1,
+                            batches=2)
+    assert rt.counters["events_valid"] == 2 * len(cols)
+
+
+def test_flush_knobs_validated():
+    with pytest.raises(ValueError, match="HEATMAP_EMIT_FLUSH_K"):
+        load_config({"HEATMAP_EMIT_FLUSH_K": "0"})
+    with pytest.raises(ValueError, match="HEATMAP_EMIT_PULL"):
+        load_config({"HEATMAP_EMIT_PULL": "some"})
+    cfg = load_config({"HEATMAP_EMIT_FLUSH_K": "4",
+                       "HEATMAP_EMIT_PULL": "prefix"})
+    assert cfg.emit_flush_k == 4 and cfg.emit_pull == "prefix"
+    cfg = load_config({})
+    assert cfg.emit_flush_k == 8 and cfg.emit_pull == "auto"
 
 
 def test_ops_per_batch_counts_the_dispatched_ops():
