@@ -22,17 +22,30 @@ Phases, one JSON line each:
                 within the bars of the CPU run, and the fast path taking
                 each of its tiers 1, 2 and 3.
 4. fold         the synthetic_backfill pipeline end to end through
-                heatmap_tpu_torch.stream with its defaults (the fast path
+                heatmap_tpu_torch.stream with the reference runtime's
+                defaults, in a fresh checkpoint directory: the fast path
                 over the auto impl, an emit ring 8 batches deep with
-                live-prefix pulls): 10M events, 20 batches of 2^19, a
-                2^20-row slab with 64 histogram bins.  The snap kernel must
-                launch once a batch, no group may overflow, the tile docs'
-                counts must sum to the events aggregated, and the pulls
-                must cover every batch.  Then, outside the timed run, the
-                ops each of the first batches dispatches (by tier) and the
+                live-prefix pulls, one batch prefetched, slab growth with
+                its pressure flush, a checkpoint every 20 batches and at
+                close.  10M events, 20 batches of 2^19, a slab of 2^20
+                rows with 64 histogram bins that must grow once, to 2^21;
+                the flushes by trigger must equal the JAX runtime's
+                arithmetic for this stream (``reference_flushes``), and
+                2 commits must land.  The snap kernel must launch once a
+                batch, no group may overflow, the tile docs' counts must
+                sum to the events aggregated, and the pulls must cover
+                every batch.  Then, outside the timed run, the ops each of
+                the first batches dispatches (by tier) and the
                 synchronisations of a steady batch that flushes nothing:
                 exactly one, the fold's tier-predicate read.
-5. determinism  the first 3 batches twice from a fresh slab, then a flush:
+5. resume       the same fold with a checkpoint every 10 batches, the
+                runtime abandoned 3 batches after the commit (its commit
+                joined, no close), then a new runtime on the same
+                directory and store: its restored slab must equal the
+                committed npz byte for byte, and the final docs the fold
+                phase's exactly; prints the time to recover (construction
+                plus the first batch) and the snap launches of both runs.
+6. determinism  the first 3 batches twice from a fresh slab, then a flush:
                 the host matrices of the two runs must be byte-identical,
                 batch by batch.
 
@@ -45,9 +58,12 @@ exits non-zero; without a CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -60,6 +76,8 @@ F32_OPS_PER_S = 67e12
 SEED = 20261017
 MAIN_RES = 9
 MAIN_BATCH = 1 << 19
+MAIN_EVENTS = 10_000_000    # synthetic_backfill: 20 batches
+MAIN_BATCHES = 20
 
 
 def emit(obj) -> None:
@@ -305,7 +323,8 @@ def fold_run(torch, step, batches, device, impl, fastpath):
     saved = step.MERGE_IMPL, step.FASTPATH
     step.MERGE_IMPL, step.FASTPATH = impl, fastpath
     try:
-        agg = MultiAggregator([(MAIN_RES, 300)], FC_CAP, emit_capacity=FC_N,
+        agg = MultiAggregator([(MAIN_RES, 300)], FC_CAP, FC_N,
+                              emit_capacity=FC_N,
                               hist_bins=64, device=device)
         max_ts, out = step.I32_MIN, []
         for b in batches:
@@ -381,7 +400,54 @@ def phase_fold_check(torch, dev):
           "max_abs_err_float_lanes": worst})
 
 
-def phase_fold(torch, run_pipeline, snap_kernel):
+def reference_flushes(n_batches, batch, cap, cap_max, k, every, peak):
+    """Flushes by trigger, growths and the final slab rows that the JAX
+    runtime's defaults give a stream in one window (no watermark flush)
+    whose live groups, once the first flush reads them, stay at ``peak``
+    (the run's largest count: at synthetic_backfill's sizes every outcome
+    below is the same for any 0 < peak <= batch).
+    heatmap_tpu/stream/runtime.py: the margin ``2 * batch * (pending + 2)
+    // 2`` (``_grow_margin``, :1996-2017), the pressure
+    flush when ``peak + margin > cap`` (``_grow_would_trigger``,
+    :2019-2031, in the step loop :2300-2330, after the ring-full test),
+    then ``_maybe_grow`` doubling while ``peak + margin > cap`` up to the
+    ceiling (:1948-1994), the checkpoint's flush every ``every`` batches
+    (:2546-2555), and the flush on the idle poll that finds the stream
+    ended (:2276-2279), which leaves nothing to the close (:2985-2989)."""
+    flushes = {"full": 0, "grow": 0, "checkpoint": 0, "idle": 0,
+               "close": 0}
+    pend, seen, grows = 0, 0, 0
+    margin = lambda: 2 * batch * (pend + 2) // 2
+    for b in range(n_batches):
+        reason = ("full" if pend >= k
+                  else "grow" if seen + margin() > cap else None)
+        if reason is not None:
+            flushes[reason] += 1
+            pend, seen = 0, peak
+            new = cap
+            while seen + margin() > new and new < cap_max:
+                new *= 2
+            grows += new != cap
+            cap = new
+        pend += 1
+        if every and (b + 1) % every == 0:
+            flushes["checkpoint"] += 1
+            pend, seen = 0, peak
+    flushes["idle"] += pend > 0
+    return flushes, grows, cap
+
+
+def commit_record(commits):
+    """Capture ms, background seconds and bytes on disk of each commit;
+    raises unless each landed."""
+    for c in commits:
+        if "bytes" not in c or not c["bytes"]:
+            raise AssertionError(f"a checkpoint commit did not land: {c}")
+    return [{k: c[k] for k in ("epoch", "capture_ms", "background_s",
+                               "bytes")} for c in commits]
+
+
+def phase_fold(torch, run_pipeline, snap_kernel, ckpt_dir):
     from heatmap_tpu_torch.engine import step
     from heatmap_tpu_torch.profile_fold import per_batch_counts
 
@@ -391,7 +457,8 @@ def phase_fold(torch, run_pipeline, snap_kernel):
     for t in step._merge_fastpath.tiers:
         step._merge_fastpath.tiers[t] = 0
     t0 = time.monotonic()
-    rt, store = run_pipeline("synthetic_backfill", device="cuda")
+    rt, store = run_pipeline("synthetic_backfill", device="cuda",
+                             checkpoint_dir=ckpt_dir)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = snap_kernel.latlng_to_cell_kernel.launches
@@ -405,7 +472,7 @@ def phase_fold(torch, run_pipeline, snap_kernel):
                              f"{m['batches']} batches")
     if m["state_overflow"]:
         raise AssertionError(f"state overflow: {m['state_overflow']}")
-    if not (total == m["events_valid"] == 10_000_000):
+    if not (total == m["events_valid"] == MAIN_EVENTS):
         raise AssertionError(f"counts not conserved: docs {total}, "
                              f"aggregated {m['events_valid']}")
     if sum(tiers.values()) != m["batches"] or not tiers[3]:
@@ -414,6 +481,28 @@ def phase_fold(torch, run_pipeline, snap_kernel):
     if pulls["batches"] != m["batches"] or not rt._prefix_pull:
         raise AssertionError(f"emit pulls {pulls} for {m['batches']} "
                              f"batches (prefix pull: {rt._prefix_pull})")
+    cfg = rt.cfg
+    peak = rt._n_active_peak
+    if not 0 < peak <= cfg.batch_size:
+        raise AssertionError(f"live groups {peak}: outside the range "
+                             f"reference_flushes models")
+    want, want_grown, want_cap = reference_flushes(
+        m["batches"], cfg.batch_size, 1 << cfg.state_capacity_log2,
+        1 << (cfg.state_capacity_log2 + 4), cfg.emit_flush_k,
+        rt.checkpoint_every, peak)
+    got = {k: pulls[k] for k in want}
+    if (got != want or pulls["watermark"]
+            or m["state_grown"] != want_grown or want_grown != 1
+            or m["capacity"] != want_cap
+            or want_cap != 2 << cfg.state_capacity_log2):
+        raise AssertionError(
+            f"flushes {pulls}, growths {m['state_grown']}, capacity "
+            f"{m['capacity']}; the reference's arithmetic gives {want}, "
+            f"{want_grown}, {want_cap}")
+    commits = commit_record(m["commits"])
+    if (m["checkpoints"] != 2 or m["batches"] != MAIN_BATCHES
+            or [c["epoch"] for c in commits] != [MAIN_BATCHES] * 2):
+        raise AssertionError(f"{m['checkpoints']} checkpoints: {commits}")
     bytes_per_batch = pulls["bytes"] / m["batches"]
     if bytes_per_batch >= 1 << 20:
         raise AssertionError(f"{bytes_per_batch} bytes pulled a batch")
@@ -423,6 +512,9 @@ def phase_fold(torch, run_pipeline, snap_kernel):
                *d["centroid"]["coordinates"]))]
     if bad:
         raise AssertionError(f"non-finite doc fields: {bad[:3]}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    spans = {k: m["p50_span_ms"][k] for k in ("poll", "feed", "dispatch",
+                                              "prefetch")}
     del rt, store
     torch.cuda.empty_cache()
     counts = per_batch_counts()
@@ -435,12 +527,99 @@ def phase_fold(torch, run_pipeline, snap_kernel):
     out = {"phase": "fold", "events": m["events_valid"],
            "batches": m["batches"], "wall_s": wall,
            "events_per_s": m["events_valid"] / wall,
-           "p50_batch_ms": m["p50_batch_ms"], "tiles": len(docs),
-           "tiles_emitted": m["tiles_emitted"],
-           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "p50_batch_ms": m["p50_batch_ms"], "p50_span_ms": spans,
+           "tiles": len(docs), "tiles_emitted": m["tiles_emitted"],
+           "peak_mem_bytes": peak_mem,
            "snap_launches": launches, "tiers": tiers, "pulls": pulls,
+           "reference_flushes": want, "live_groups_peak": peak,
+           "state_grown": m["state_grown"], "capacity": m["capacity"],
+           "commits": commits,
            "bytes_pulled_per_batch": bytes_per_batch,
            "per_batch": counts["ops"], "steady_batch_syncs": syncs}
+    emit(out)
+    return out, docs
+
+
+def phase_resume(torch, snap_kernel, fold_docs, ckpt_dir):
+    """Kill after a commit and 3 more batches, resume on the same
+    directory and store: the restored slab equals the commit, the final
+    docs equal an uninterrupted run's."""
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.checkpoint import CheckpointManager
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+
+    p = get_pipeline("synthetic_backfill")
+    cfg = dataclasses.replace(p.config, checkpoint_dir=ckpt_dir)
+    every = 10
+    store = MemoryStore()
+    snap_kernel.latlng_to_cell_kernel.launches = 0
+    rt = MicroBatchRuntime(cfg, p.make_source(cfg), store,
+                           checkpoint_every=every)
+    for _ in range(every + 3):
+        if not rt.step_once():
+            raise AssertionError("synthetic_backfill ran dry")
+    rt._ckpt_join()          # the commit lands; then the process "dies"
+    # batch wall times and predicate waits: the commit's background
+    # thread runs beside the last 3 (do its D2H and np.savez slow the
+    # step thread?)
+    first = {"batches": rt.counters["batches"], "pulls": dict(rt.pulls),
+             "commits": commit_record(rt.commits), "batch_ms": rt.batch_ms,
+             "predicate_ms": rt.span_ms["predicate"]}
+    del rt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # time to recover: construction (the npz load, the H2D, the growth,
+    # the seek) plus the first batch's step; the checks between are not
+    # counted
+    t0 = time.monotonic()
+    rt = MicroBatchRuntime(cfg, p.make_source(cfg), store,
+                           checkpoint_every=every)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    if rt.epoch != every or rt._offsets_dispatched != every * cfg.batch_size:
+        raise AssertionError(f"resumed at epoch {rt.epoch}, offset "
+                             f"{rt._offsets_dispatched}")
+    pair = rt.pairs[0]
+    committed = CheckpointManager(ckpt_dir).load_state(*pair, epoch=every)
+    restored = rt.aggs[pair].snapshot()
+    for name, a, b in zip(committed._fields, committed, restored):
+        if (a.dtype != b.dtype or a.shape != b.shape
+                or a.tobytes() != b.tobytes()):
+            raise AssertionError(f"restored slab differs from the commit "
+                                 f"in {name}")
+    del restored
+    t1 = time.monotonic()
+    if not rt.step_once():
+        raise AssertionError("the resumed run had nothing to fold")
+    torch.cuda.synchronize()
+    time_to_recover = restore_s + time.monotonic() - t1
+    first_step_ms = {"batch": rt.batch_ms[0],
+                     **{k: v[0] for k, v in rt.span_ms.items() if v}}
+    rt.run()
+    m = rt.metrics
+    launches = snap_kernel.latlng_to_cell_kernel.launches
+    if launches != first["batches"] + m["batches"]:
+        raise AssertionError(f"snap kernel launched {launches} times in "
+                             f"{first['batches']} + {m['batches']} batches")
+    if (rt.epoch != MAIN_BATCHES or m["batches"] != MAIN_BATCHES - every
+            or m["state_overflow"]):
+        raise AssertionError(f"resumed run: epoch {rt.epoch}, {m}")
+    if store._tiles != fold_docs:
+        raise AssertionError("the resumed run's docs differ from the "
+                             "uninterrupted run's")
+    out = {"phase": "resume", "killed_after_batches": first["batches"],
+           "committed_epoch": every, "first_run": first,
+           "restore_s": restore_s, "resume_s": rt.resume_s,
+           "time_to_recover_s": time_to_recover,
+           "first_step_ms": first_step_ms,
+           "resumed_batches": m["batches"], "resumed_pulls": m["pulls"],
+           "capacity": m["capacity"], "commits": commit_record(m["commits"]),
+           "snap_launches": launches, "slab_identical": True,
+           "docs_identical": True, "tiles": len(store._tiles)}
+    del rt
+    torch.cuda.empty_cache()
     emit(out)
     return out
 
@@ -452,14 +631,20 @@ def phase_determinism(torch):
 
     runs = []
     for _ in range(2):
-        rt = new_runtime()
-        for _ in range(3):
-            if not rt.step_once():
-                raise AssertionError("synthetic_backfill ran dry")
-        rt.flush_pending()
-        runs.append([b"".join(m.tobytes() for m in bufs)
-                     for bufs, _ in rt.last_flush])
-        del rt
+        with tempfile.TemporaryDirectory() as ckpt:
+            rt = new_runtime(ckpt)
+            flushed = []   # every flush's batches (growth flushes one)
+            for _ in range(3):
+                flushes = rt.pulls["flushes"]
+                if not rt.step_once():
+                    raise AssertionError("synthetic_backfill ran dry")
+                if rt.pulls["flushes"] > flushes:
+                    flushed += rt.last_flush
+            rt.flush_pending()
+            flushed += rt.last_flush
+            runs.append([b"".join(m.tobytes() for m in bufs)
+                         for bufs, _ in flushed])
+            del rt
         torch.cuda.empty_cache()
     same = [a == b for a, b in zip(*runs)]
     if len(same) != 3 or not all(same):
@@ -503,7 +688,16 @@ def main() -> int:
     emit({"phase": "snap_main_inputs", "points": len(cols),
           "res": p.config.h3_res, "identical": main_share,
           "max_abs_err": main_err})
-    fold = phase_fold(torch, run_pipeline, snap_kernel)
+    # each run commits to a directory of its own, removed at the end
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke-ckpt-")
+    try:
+        fold, fold_docs = phase_fold(torch, run_pipeline, snap_kernel,
+                                     f"{ckpt_root}/fold")
+        resume = phase_resume(torch, snap_kernel, fold_docs,
+                              f"{ckpt_root}/resume")
+        del fold_docs
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     phase_determinism(torch)
 
     emit({"kernels": [{
@@ -512,6 +706,7 @@ def main() -> int:
         "source": "heatmap_tpu_torch/hexgrid/csrc/snap_cell.cu",
         "replaces": "heatmap_tpu/hexgrid/pallas_kernel.py:66",
         "launches": fold["snap_launches"],
+        "launches_resume_phase": resume["snap_launches"],
         "max_abs_err": main_err,
         "identical_share": main_share,
         "ms": snap["ms"],

@@ -4,7 +4,9 @@ The counterpart of ``heatmap_tpu/engine/multi.py`` for one device: the H3
 snap runs once per unique resolution, each pair's ``merge_batch`` folds its
 own slab, and the per-pair packed emits stack into one (P, E+1, 13) int32
 matrix, so the whole batch's output is one tensor for the stream
-runtime's emit ring to park and pull.
+runtime's emit ring to park and pull.  ``grow`` resizes every pair's slab
+on the device, and ``PairView`` is one pair's checkpoint adapter
+(snapshot, restore).
 """
 
 from __future__ import annotations
@@ -18,7 +20,11 @@ from heatmap_tpu_torch.engine.state import (
     EMPTY_KEY_HI,
     EMPTY_KEY_LO,
     TileState,
+    device_copy,
+    from_host,
+    grow_state,
     init_state,
+    to_host,
 )
 from heatmap_tpu_torch.engine.step import (
     RAD_TO_DEG,
@@ -71,10 +77,13 @@ class MultiAggregator:
     All pairs share capacity / hist_bins / emit capacity so states and
     emits stack along a leading pair axis."""
 
+    n_shards = 1
+
     def __init__(
         self,
         pairs: Sequence[tuple[int, int]],   # (res, window_s), unique
         capacity: int,
+        batch_size: int,
         emit_capacity: int,
         hist_bins: int = 0,
         speed_hist_max: float = 256.0,
@@ -84,6 +93,8 @@ class MultiAggregator:
             raise ValueError(f"duplicate (res, window) pairs: {pairs}")
         self.pairs = list(pairs)
         self.device = torch.device(device)
+        self.capacity_per_shard = capacity
+        self.batch_size = batch_size
         self.params = [
             AggParams(res=r, window_s=w, emit_capacity=emit_capacity,
                       speed_hist_max=speed_hist_max)
@@ -113,6 +124,70 @@ class MultiAggregator:
                  for p, (emit, stats) in zip(self.params, folded)]
         self.states = list(new_states)
         return torch.stack(packs)
+
+    def view(self, res: int, window_s: int) -> "PairView":
+        return PairView(self, self.pairs.index((res, window_s)))
+
+    def grow(self, new_capacity: int) -> None:
+        """Grow EVERY pair's slab to ``new_capacity`` rows on the device
+        (pairs share one capacity so their emits stack).  The slab stays
+        sorted (EMPTY pads the tail).  The emit capacity grows with it, to
+        ``max(old, min(batch_size, new_capacity))``, as the reference's
+        does, so the packed emits change shape: the caller must have
+        flushed every parked emit first (the emit ring refuses mixed
+        shapes)."""
+        self.states = [grow_state(st, new_capacity) for st in self.states]
+        self.capacity_per_shard = new_capacity
+        new_emit = min(self.batch_size, new_capacity)
+        self.params = [
+            p._replace(emit_capacity=max(p.emit_capacity, new_emit))
+            for p in self.params]
+
+
+class PairView:
+    """Checkpoint adapter for one pair of a MultiAggregator: host snapshots
+    in the reference's layout, and restore from one."""
+
+    def __init__(self, multi: MultiAggregator, idx: int):
+        self._multi = multi
+        self._idx = idx
+
+    @property
+    def capacity_per_shard(self) -> int:  # tracks growth
+        return self._multi.capacity_per_shard
+
+    @property
+    def state(self) -> TileState:
+        return self._multi.states[self._idx]
+
+    def snapshot(self) -> TileState:
+        """Host copy (numpy, key words uint32)."""
+        return to_host(self.state)
+
+    def device_snapshot(self) -> TileState:
+        """Fresh-buffer copy on the device: later folds do not touch it."""
+        return device_copy(self.state)
+
+    @staticmethod
+    def to_host(snap: TileState) -> TileState:
+        return to_host(snap)
+
+    def restore(self, st: TileState, pad: bool = False) -> None:
+        """Load a host snapshot in the reference's layout; a slab of
+        another shape refuses (config drift).  With ``pad``, a snapshot
+        of fewer rows is taken too and grown on the device to this
+        capacity (EMPTY tail)."""
+        cur = self.state
+        cap, rows = cur.key_hi.shape[0], st.key_hi.shape[0]
+        fit = rows if pad and rows < cap else cap
+        want = ((fit,), (fit,) + tuple(cur.hist.shape[1:]))
+        got = (tuple(st.key_hi.shape), tuple(st.hist.shape))
+        if want != got:
+            raise ValueError(f"state shape {got} != configured {want}")
+        dev = from_host(st, self._multi.device)
+        if rows < cap:
+            dev = grow_state(dev, cap)
+        self._multi.states[self._idx] = dev
 
 
 class MultiStats(NamedTuple):

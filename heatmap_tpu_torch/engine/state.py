@@ -112,3 +112,58 @@ def from_host(snap: TileState, device: torch.device | str) -> TileState:
             a = a.view(np.int32)
         out.append(torch.from_numpy(a.copy()).to(device))
     return TileState(*out)
+
+
+# EMPTY fills of a host slab in the reference's layout (key words uint32)
+_HOST_FILLS = {
+    "key_hi": np.uint32(EMPTY_KEY_HI & 0xFFFFFFFF),
+    "key_lo": np.uint32(EMPTY_KEY_LO & 0xFFFFFFFF),
+    "key_ws": np.int32(EMPTY_WS),
+}
+_DEVICE_FILLS = {"key_hi": EMPTY_KEY_HI, "key_lo": EMPTY_KEY_LO,
+                 "key_ws": EMPTY_WS}
+
+
+def resize_state(st: TileState, new_capacity: int) -> TileState:
+    """Host-side resize of a one-shard snapshot in the reference's layout
+    (numpy, key words uint32) to a new capacity, as the reference's
+    ``resize_state`` does it.
+
+    Growth pads the tail with EMPTY rows, which sort last, so the slab
+    stays sorted.  Shrinking is allowed only when the live rows (a sorted
+    prefix) fit; otherwise it raises, because dropping aggregates silently
+    is never acceptable."""
+    old_cap = st.key_hi.shape[0]
+    if new_capacity == old_cap:
+        return st
+    if new_capacity < old_cap:
+        live = int((np.asarray(st.key_hi) != _HOST_FILLS["key_hi"]).sum())
+        if live > new_capacity:
+            raise ValueError(f"cannot shrink to {new_capacity}: the slab "
+                             f"holds {live} live groups")
+    keep = min(old_cap, new_capacity)
+    out = []
+    for name, leaf in zip(TileState._fields, st):
+        a = np.asarray(leaf)
+        new = np.full((new_capacity,) + a.shape[1:],
+                      _HOST_FILLS.get(name, a.dtype.type(0)), a.dtype)
+        new[:keep] = a[:keep]
+        out.append(new)
+    return TileState(*out)
+
+
+def grow_state(state: TileState, new_capacity: int) -> TileState:
+    """The slab grown to ``new_capacity`` rows on its own device: fresh
+    tensors EMPTY-filled, the old rows copied into the head.  The same
+    slab as ``resize_state`` gives on the host, without the round trip
+    through host memory; it only grows."""
+    if new_capacity < state.capacity:
+        raise ValueError(f"grow_state cannot shrink {state.capacity} -> "
+                         f"{new_capacity} rows")
+    out = []
+    for name, t in zip(TileState._fields, state):
+        new = t.new_full((new_capacity,) + tuple(t.shape[1:]),
+                         _DEVICE_FILLS.get(name, 0))
+        new[:t.shape[0]].copy_(t)
+        out.append(new)
+    return TileState(*out)

@@ -21,8 +21,10 @@ fast path's tier (``miss_census``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
+import tempfile
 import traceback
 import warnings
 
@@ -120,26 +122,31 @@ def syncs_per_batch(rt) -> dict:
             "tier": tier, "flushed": flushed, "sites": sites}
 
 
-def new_runtime():
-    """A fresh ``synthetic_backfill`` runtime on the CUDA device."""
+def new_runtime(checkpoint_dir: str):
+    """A fresh ``synthetic_backfill`` runtime on the CUDA device that
+    commits to ``checkpoint_dir`` (an empty directory: a runtime resumes
+    from any commit it finds there)."""
     from heatmap_tpu_torch.models.pipelines import get_pipeline
     from heatmap_tpu_torch.sink.memory import MemoryStore
     from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
 
     p = get_pipeline("synthetic_backfill")
-    return MicroBatchRuntime(p.config, p.make_source(p.config),
-                             MemoryStore(), device="cuda")
+    cfg = dataclasses.replace(p.config, checkpoint_dir=checkpoint_dir)
+    return MicroBatchRuntime(cfg, p.make_source(cfg), MemoryStore(),
+                             device="cuda")
 
 
 def per_batch_counts(batches: int = 4) -> dict:
     """On a fresh runtime: the ops each of the first ``batches`` batches
     dispatches (each with its tier: the first takes tier 3), then the
     synchronisations of the next one, a steady batch that flushes
-    nothing (the ring holds fewer than ``emit_flush_k`` batches)."""
-    rt = new_runtime()
-    ops = [ops_per_batch(rt) for _ in range(batches)]
-    syncs = syncs_per_batch(rt)
-    del rt
+    nothing (neither the ring's depth, the watermark nor growth pressure
+    calls for a flush)."""
+    with tempfile.TemporaryDirectory() as ckpt:
+        rt = new_runtime(ckpt)
+        ops = [ops_per_batch(rt) for _ in range(batches)]
+        syncs = syncs_per_batch(rt)
+        del rt
     torch.cuda.empty_cache()
     return {"ops": ops, "syncs": syncs}
 
@@ -200,41 +207,42 @@ def main(argv=None) -> None:
         return
     from torch.profiler import ProfilerActivity, profile
 
-    rt = new_runtime()
-    rt.time_device_fold = True
-    for _ in range(2):
-        _step(rt)
-    for v in rt.span_ms.values():
-        v.clear()
-    rt.batch_ms.clear()
-    tiers = dict(step._merge_fastpath.tiers)
-    pulls = dict(rt.pulls)
-    for _ in range(args.batches):
-        _step(rt)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    m = rt.metrics
-    mean = lambda xs: float(np.mean(xs)) if xs else None
-    print(json.dumps({
-        "card": smi, "batches": args.batches,
-        "p50_batch_ms": m["p50_batch_ms"],
-        "p50_span_ms": m["p50_span_ms"],
-        "mean_span_ms": {k: mean(v) for k, v in rt.span_ms.items()},
-        "flush_ms": [(p, s) for p, s in zip(rt.span_ms["pull"],
-                                            rt.span_ms["sink"]) if p or s],
-        "tiers": {t: n - tiers[t]
-                  for t, n in step._merge_fastpath.tiers.items()},
-        "pulls": {k: v - pulls[k] for k, v in rt.pulls.items()},
-    }), flush=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory() as ckpt:
+        rt = new_runtime(ckpt)
+        rt.time_device_fold = True
         for _ in range(2):
             _step(rt)
-        torch.cuda.synchronize()
-    rt.close()
-    del rt
-    torch.cuda.empty_cache()
+        for v in rt.span_ms.values():
+            v.clear()
+        rt.batch_ms.clear()
+        tiers = dict(step._merge_fastpath.tiers)
+        pulls = dict(rt.pulls)
+        for _ in range(args.batches):
+            _step(rt)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip()
+        m = rt.metrics
+        mean = lambda xs: float(np.mean(xs)) if xs else None
+        print(json.dumps({
+            "card": smi, "batches": args.batches,
+            "p50_batch_ms": m["p50_batch_ms"],
+            "p50_span_ms": m["p50_span_ms"],
+            "mean_span_ms": {k: mean(v) for k, v in rt.span_ms.items()},
+            "flush_ms": [(p, s) for p, s in zip(rt.span_ms["pull"],
+                                                rt.span_ms["sink"]) if p or s],
+            "tiers": {t: n - tiers[t]
+                      for t, n in step._merge_fastpath.tiers.items()},
+            "pulls": {k: v - pulls[k] for k, v in rt.pulls.items()},
+        }), flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                _step(rt)
+            torch.cuda.synchronize()
+        rt.close()
+        del rt
+        torch.cuda.empty_cache()
     print(json.dumps({"per_batch": per_batch_counts()}), flush=True)
     ka = prof.key_averages()
     print(ka.table(sort_by="cuda_time_total", row_limit=30,

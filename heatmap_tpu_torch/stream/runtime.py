@@ -1,29 +1,50 @@
-"""Micro-batch streaming runtime (lean): source -> device fold -> store.
+"""Micro-batch streaming runtime: source -> device fold -> store, with
+checkpoints, slab growth and a prefetched feed.
 
-The counterpart of the main loop of ``heatmap_tpu/stream/runtime.py``
-for one device:
+The counterpart of the single-device path of
+``heatmap_tpu/stream/runtime.py``:
 
-  poll -> pad into pinned host buffers -> host->device copy -> fused fold
+  poll -> pad into pinned host buffers -> host->device copy (on a side
+  stream, one batch ahead of the fold: ``prefetch_batches``) -> fused fold
   of every (res, window) pair (engine.multi) -> the packed emits parked in
   an ``EmitRing`` on the device -> one pull of every parked batch (a live
-  prefix of each on CUDA) -> tile docs into the store.
+  prefix of each on CUDA) -> tile docs into the store -> every
+  ``checkpoint_every`` batches a checkpoint: the ring flushed, a device
+  copy of each slab taken on the step thread, the copy to the host and the
+  commit to disk on a background thread.
 
 The ring is flushed when it holds ``emit_flush_k`` batches, when the
 watermark cutoff crosses a boundary of the smallest window (so closing
-windows reach the sink now, not up to K batches later), on an idle poll,
-and at the end of a run (``close``).  The cutoff of each batch is
-``max_event_ts - watermark_minutes * 60``, as in the reference; since the
-device's ``batch_max_ts`` arrives only with a flush, ``max_event_ts``
-advances on the host from each batch's own timestamps under the fold's
-late and future masks (``_host_batch_max_ts``), and each flush maxes in
-the device's value.  Docs, counters and the cutoff sequence are therefore
-the same for every K.  Checkpoints, growth, prefetch, positions and the
-observability stack of the reference runtime are not ported yet.
+windows reach the sink now, not up to K batches later), when the slab
+could grow (growth pressure: the occupancy stats lag the parked batches),
+before a checkpoint, on an idle poll, and at the end of a run (``close``).
+The cutoff of each batch is ``max_event_ts - watermark_minutes * 60``, as
+in the reference; since the device's ``batch_max_ts`` arrives only with a
+flush, ``max_event_ts`` advances on the host from each batch's own
+timestamps under the fold's late and future masks (``_host_batch_max_ts``),
+and each flush maxes in the device's value.  Docs, counters and the cutoff
+sequence are therefore the same for every K.
+
+The slab grows (``_maybe_grow``) before it can overflow: a batch mints at
+most one group per event per pair, so the grower keeps ``_grow_margin``
+free rows, up to ``2^state_max_log2`` rows (default: the configured size
+x 16).  Overflow past the ceiling is counted and logged (``on_overflow=
+"error"``) or stops the run without a commit (``"fail"``).  A new runtime
+resumes from the latest commit in ``checkpoint_dir`` (``_maybe_resume``):
+the offset, the watermark and each pair's slab, grown to a larger
+snapshot or padded to a larger configuration.  Positions, the writer
+thread, the mesh and the observability stack of the reference runtime are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import collections
+import logging
+import os
+import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,9 +52,34 @@ import torch
 from heatmap_tpu_torch.config import Config
 from heatmap_tpu_torch.engine import step
 from heatmap_tpu_torch.engine.multi import MultiAggregator, stats_from_packed
+from heatmap_tpu_torch.engine.state import TileState, to_host
 from heatmap_tpu_torch.engine.step import FUTURE_WINDOWS, I32_MIN, EmitRing
 from heatmap_tpu_torch.sink.base import Store, TilePackMeta
+from heatmap_tpu_torch.stream.checkpoint import CheckpointManager
 from heatmap_tpu_torch.stream.source import Source
+
+log = logging.getLogger(__name__)
+
+
+class StateOverflowError(RuntimeError):
+    """Raised (HEATMAP_ON_OVERFLOW=fail) when distinct (cell, window)
+    groups exceed the state slab capacity and aggregates would be
+    dropped."""
+
+
+class _FeedBatch(NamedTuple):
+    """One polled batch, padded and on its way to the device.  ``offset``
+    is the source position right after THIS batch's poll: it becomes the
+    committed offset only when the batch is dispatched, so a checkpoint
+    never covers a batch that was polled ahead but not folded."""
+
+    ts_s: np.ndarray     # the batch's event times (host watermark advance)
+    n: int               # live rows
+    feed: dict           # lat/lng/speed/ts/valid, padded, on the device
+    host: dict           # the pinned host buffers the copies read from
+    ready: object        # CUDA event after the copies (None on the CPU)
+    offset: object       # source offset after this batch's poll
+    spans: dict          # poll and feed seconds
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -51,22 +97,47 @@ def _wrap32(x):
     return ((x + 2**31) % 2**32) - 2**31
 
 
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
 class MicroBatchRuntime:
     def __init__(self, cfg: Config, source: Source, store: Store,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 checkpoint_every: int = 20):
         self.cfg = cfg
         self.source = source
         self.store = store
         self.device = resolve_device(device)
+        self.checkpoint_every = checkpoint_every
         self.pairs = list(dict.fromkeys(
             (res, wmin * 60) for res in cfg.resolutions
             for wmin in cfg.windows_minutes))
         cap = 1 << cfg.state_capacity_log2
+        self._cap_max = 1 << (cfg.state_max_log2
+                              or cfg.state_capacity_log2 + 4)
+        if (cfg.grow_margin == "worst" and self._cap_max > cap
+                and cap < 2 * cfg.batch_size):
+            # one batch can mint up to batch_size new groups: below this
+            # floor the first batches could overflow before stats-driven
+            # growth sees them, so start at the floor (loudly)
+            grown = cap
+            while grown < 2 * cfg.batch_size and grown < self._cap_max:
+                grown *= 2
+            log.warning(
+                "STATE_CAPACITY_LOG2=%d holds less than one batch of new "
+                "groups; starting at 2^%d rows (set "
+                "HEATMAP_STATE_MAX_LOG2=%d to pin the configured size)",
+                cfg.state_capacity_log2, grown.bit_length() - 1,
+                cfg.state_capacity_log2)
+            cap = grown
         self.multi = MultiAggregator(
-            self.pairs, capacity=cap,
+            self.pairs, capacity=cap, batch_size=cfg.batch_size,
             emit_capacity=min(cfg.batch_size, cap),
             hist_bins=cfg.speed_hist_bins,
             speed_hist_max=cfg.speed_hist_max_kmh, device=self.device)
+        self.aggs = {pair: self.multi.view(*pair) for pair in self.pairs}
         self._pack_meta = {
             (res, win_s): TilePackMeta(
                 city=cfg.city,
@@ -84,37 +155,199 @@ class MicroBatchRuntime:
         # unique window lengths: the host-side watermark advance and the
         # watermark-pressure flush trigger read them
         self._uniq_windows = sorted({win_s for _, win_s in self.pairs})
+        self.epoch = 0
         self.max_event_ts = I32_MIN
         self._last_flush_cutoff = I32_MIN  # watermark-pressure tracking
         self._ring = EmitRing(cfg.emit_flush_k)
         self._prefix_pull = (self.device.type == "cuda"
                              if cfg.emit_pull == "auto"
                              else cfg.emit_pull == "prefix")
+        self._prefetched: collections.deque = collections.deque()
+        self._closing = False       # stops the prefetch refill at close
+        cuda = self.device.type == "cuda"
+        # the feed's host->device copies and the checkpoint's device->host
+        # copies run on streams of their own, off the fold's
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._ckpt_stream = torch.cuda.Stream(self.device) if cuda else None
+        # overflow policy and growth bookkeeping
+        self._fatal = False         # a fail-mode overflow: no exit commit
+        # a flush whose batches did not all reach the sink: the state and
+        # the dispatched offsets cover them, so nothing may commit again
+        self._poisoned = False
+        self._overflow_logged_at = -float("inf")
+        self._n_active_peak = 0     # max live groups (any pair)
+        self._prev_active: dict = {}  # last n_active per pair
+        self._mint_peak = 0         # max per-batch new-group count seen
+        if cfg.grow_margin == "observed" and cfg.on_overflow != "fail":
+            log.warning(
+                "HEATMAP_GROW_MARGIN=observed with HEATMAP_ON_OVERFLOW=%s:"
+                " a minting burst beyond the observed margin DROPS groups"
+                " (loudly) — set HEATMAP_ON_OVERFLOW=fail for the lossless"
+                " stop-and-replay backstop", cfg.on_overflow)
+        # checkpoints: the commit runs on a background thread; its error
+        # surfaces on the step thread at the next join
+        self.snap_impl = "cuda" if cuda else "torch"  # this device's route
+        self.ckpt = CheckpointManager(cfg.checkpoint_dir)
+        self._ckpt_thread: threading.Thread | None = None
+        self._ckpt_err: BaseException | None = None
+        # one record per commit: epoch, capture ms on the step thread, and
+        # (once landed) background seconds and bytes on disk
+        self.commits: list[dict] = []
         self.counters = {"batches": 0, "events_polled": 0, "events_valid": 0,
                          "events_late": 0, "tiles_emitted": 0,
-                         "state_overflow": 0}
+                         "state_overflow": 0, "state_grown": 0,
+                         "checkpoints": 0}
         # emit pulls: flushes in all and by trigger, batches and bytes
         # pulled (these depend on K, the counters above do not)
-        self.pulls = {"flushes": 0, "full": 0, "watermark": 0, "idle": 0,
-                      "close": 0, "batches": 0, "bytes": 0}
+        self.pulls = {"flushes": 0, "full": 0, "watermark": 0, "grow": 0,
+                      "checkpoint": 0, "idle": 0, "close": 0, "batches": 0,
+                      "bytes": 0}
         self.batch_ms: list[float] = []
-        # per-batch spans (ms) on the host clock: poll, feed (pad + H2D
-        # enqueue), pull and sink (a flush of the parked batches before
-        # this batch's fold, device wait + D2H then the store; 0 when the
-        # batch flushes nothing), dispatch (fold enqueue, the predicate
-        # wait excluded), predicate (the host's wait on the fold's tier
-        # predicate read, engine.step._read_flags); and, when
+        # per-batch spans (ms) on the host clock: poll and feed (pad + H2D
+        # enqueue) of the batch dispatched, whichever step paid them; pull
+        # and sink (a flush of the parked batches before this batch's
+        # fold, device wait + D2H then the store; 0 when the batch flushes
+        # nothing), dispatch (fold enqueue, the predicate wait excluded),
+        # predicate (the host's wait on the fold's tier predicate read,
+        # engine.step._read_flags), prefetch (the next batch's poll and
+        # feed, after this dispatch), checkpoint (the flush before it and
+        # the capture on this thread; 0 on most batches); and, when
         # time_device_fold is set on a CUDA run, the fold's device time
-        # from CUDA events (off by default: two events per batch that
-        # only a profiling run reads)
+        # from CUDA events (off by default: two events per batch that only
+        # a profiling run reads)
         self.time_device_fold = False
         self.span_ms: dict[str, list[float]] = {
             k: [] for k in ("poll", "feed", "pull", "sink", "dispatch",
-                            "predicate", "device_fold")}
-        # the last flush's batches: [([host matrix per pair], batch index)]
+                            "predicate", "prefetch", "checkpoint",
+                            "device_fold")}
+        # the last flush's batches: [([host matrix per pair], epoch)]
         self.last_flush: list = []
         self._fold_events: list = []  # CUDA event pairs not yet read
+        # seconds a resume spent reading the commit's npz files (load) and
+        # putting the slabs on the device (restore); empty without one
+        self.resume_s: dict[str, float] = {}
+        self._maybe_resume()
+        # offsets as of the last DISPATCHED batch: checkpoints commit
+        # these, so a batch polled but not dispatched always replays
+        self._offsets_dispatched = self.source.offset()
 
+    # ------------------------------------------------------------------
+    def _maybe_resume(self) -> None:
+        """Resume from the latest commit, if there is one: epoch,
+        watermark, source offset and each pair's slab."""
+        meta = self.ckpt.load_meta()
+        if not meta:
+            return
+        log.info("resuming from checkpoint: %s", meta)
+        ck_snap = meta.get("snap_impl")
+        if ck_snap is not None and ck_snap != self.snap_impl:
+            # one snap route per device here: nothing to pin, only warn
+            log.warning(
+                "checkpoint state was keyed with the %r H3 snap but this "
+                "run uses %r; events on f32 cell edges may re-key across "
+                "this resume", ck_snap, self.snap_impl)
+        snap_shards = meta.get("shards")
+        if snap_shards is not None and snap_shards != self.multi.n_shards:
+            # rows would be reinterpreted as different shard blocks
+            raise RuntimeError(
+                f"checkpoint written with {snap_shards} local shard(s), "
+                f"this run has {self.multi.n_shards}; restore the original "
+                f"device topology or clear {self.cfg.checkpoint_dir}")
+        self.epoch = meta.get("epoch", 0)
+        self.max_event_ts = meta.get("max_event_ts", I32_MIN)
+        self.source.seek(meta.get("offset"))
+        self.resume_s = {"load": 0.0, "restore": 0.0}
+        for (res, win_s), view in self.aggs.items():
+            t0 = time.monotonic()
+            st = self.ckpt.load_state(res, win_s)
+            t1 = time.monotonic()
+            self.resume_s["load"] += t1 - t0
+            if st is None:
+                continue
+            try:
+                view.restore(st)
+            except ValueError as e:
+                # a capacity change across restarts is absorbed (pad up, or
+                # grow to a larger snapshot); anything else refuses
+                try:
+                    self._restore_resized(view, st, snap_shards)
+                except (ValueError, RuntimeError) as e2:
+                    raise RuntimeError(
+                        f"checkpoint state for (res={res}, window="
+                        f"{win_s // 60}m) does not match the config ({e}; "
+                        f"resize: {e2}); restore STATE_CAPACITY_LOG2/"
+                        f"SPEED_HIST_BINS or clear {self.cfg.checkpoint_dir}"
+                    ) from e2
+            self.resume_s["restore"] += time.monotonic() - t1
+
+    def _restore_resized(self, view, st: TileState,
+                         snap_shards: int | None) -> None:
+        if snap_shards is None:
+            raise ValueError(
+                "checkpoint does not record its shard count; only an "
+                "exact-shape restore is safe")
+        snap_cap = st.key_hi.shape[0]
+        if snap_cap > view.capacity_per_shard:
+            self.multi.grow(snap_cap)  # capacity is shared across pairs
+            view.restore(st)
+        else:
+            view.restore(st, pad=True)
+
+    def _checkpoint(self) -> None:
+        """Commit offsets and state: flush the ring (the commit must cover
+        every batch its offset covers), take a device copy of each slab
+        here, then copy to the host and write on a background thread."""
+        self.flush_pending("checkpoint")
+        self._ckpt_join()  # one commit in flight at a time
+        t0 = time.monotonic()
+        snaps = {pair: view.device_snapshot()
+                 for pair, view in self.aggs.items()}
+        ready = None
+        if self._ckpt_stream is not None:
+            # the commit thread copies after this event, on its own
+            # stream: not behind the folds enqueued after the capture
+            ready = torch.cuda.Event()
+            ready.record()
+        offset, epoch, max_ts = (self._offsets_dispatched, self.epoch,
+                                 self.max_event_ts)
+        rec = {"epoch": epoch, "capture_ms": (time.monotonic() - t0) * 1e3}
+        self.commits.append(rec)
+
+        def commit():
+            t1 = time.monotonic()
+            try:
+                if ready is not None:
+                    with torch.cuda.stream(self._ckpt_stream):
+                        self._ckpt_stream.wait_event(ready)
+                        states = {k: to_host(s) for k, s in snaps.items()}
+                else:
+                    states = {k: to_host(s) for k, s in snaps.items()}
+                self.ckpt.commit(offset, max_ts, epoch, states,
+                                 shards=self.multi.n_shards,
+                                 snap_impl=self.snap_impl)
+                rec["background_s"] = time.monotonic() - t1
+                rec["bytes"] = _dir_bytes(self.ckpt._commit_dir(epoch))
+                self.counters["checkpoints"] += 1
+            except BaseException as e:  # surfaced on the step thread
+                self._ckpt_err = e
+
+        self._ckpt_thread = threading.Thread(target=commit,
+                                             name="ckpt-commit", daemon=True)
+        self._ckpt_thread.start()
+
+    def _ckpt_join(self, raise_errors: bool = True) -> None:
+        """Wait for the commit in flight; raise its error here."""
+        t = self._ckpt_thread
+        if t is not None:
+            t.join()
+            self._ckpt_thread = None
+        if self._ckpt_err is not None:
+            err, self._ckpt_err = self._ckpt_err, None
+            if raise_errors:
+                raise RuntimeError("async checkpoint commit failed") from err
+            log.error("async checkpoint commit failed", exc_info=err)
+
+    # ------------------------------------------------------------------
     def _read_fold_events(self, wait: bool) -> None:
         """Move the device fold times of finished batches into
         ``span_ms["device_fold"]``; with ``wait``, wait for all."""
@@ -125,12 +358,14 @@ class MicroBatchRuntime:
 
     @property
     def metrics(self) -> dict:
-        """Counters, emit pulls, and the median batch wall time and spans
-        (ms)."""
+        """Counters, emit pulls, slab capacity, commits, and the median
+        batch wall time and spans (ms)."""
         self._read_fold_events(wait=True)
         p50 = lambda xs: float(np.median(xs)) if xs else None
         out = dict(self.counters)
         out["pulls"] = dict(self.pulls)
+        out["capacity"] = self.multi.capacity_per_shard
+        out["commits"] = [dict(c) for c in self.commits]
         out["p50_batch_ms"] = p50(self.batch_ms)
         out["p50_span_ms"] = {k: p50(v) for k, v in self.span_ms.items()}
         return out
@@ -139,14 +374,25 @@ class MicroBatchRuntime:
         return (self.max_event_ts - self.cfg.watermark_minutes * 60
                 if self.max_event_ts > I32_MIN else I32_MIN)
 
-    def _feed(self, cols) -> dict:
-        """Pad one polled batch to the feed shape in fresh host buffers and
-        start their copies to the device.  On CUDA the buffers are pinned,
-        from PyTorch's caching host allocator, which hands a buffer out
-        again only once its copy has finished: no wait here."""
+    def _next_batch(self) -> _FeedBatch | None:
+        """Poll one batch, pad it to the feed shape in fresh host buffers
+        and start its copies to the device; None on an empty poll.  On
+        CUDA the buffers are pinned, from PyTorch's caching host
+        allocator (which hands a buffer out again only once its copy has
+        finished), and the copies run on the side stream: the fold's
+        stream waits on ``ready`` when the batch is dispatched."""
+        t0 = time.monotonic()
+        cols = self.source.poll(self.cfg.batch_size)
         n = len(cols)
+        if not n:
+            return None
+        if n > self.cfg.batch_size:
+            raise ValueError(f"source returned {n} events for a batch of "
+                             f"{self.cfg.batch_size}")
+        offset = self.source.offset()
+        t1 = time.monotonic()
         size = self.cfg.batch_size
-        pin = self.device.type == "cuda"
+        pin = self._copy_stream is not None
         host = {}
         for name, arr, dtype in (
                 ("lat", cols.lat_rad, torch.float32),
@@ -160,8 +406,17 @@ class MicroBatchRuntime:
             host[name] = buf
         host["valid"] = torch.zeros(size, dtype=torch.bool, pin_memory=pin)
         host["valid"].numpy()[:n] = True
-        return {k: v.to(self.device, non_blocking=True)
-                for k, v in host.items()}
+        feed, ready = host, None
+        if pin:
+            with torch.cuda.stream(self._copy_stream):
+                feed = {k: v.to(self.device, non_blocking=True)
+                        for k, v in host.items()}
+                ready = torch.cuda.Event()
+                ready.record()
+        return _FeedBatch(ts_s=cols.ts_s, n=n, feed=feed, host=host,
+                          ready=ready, offset=offset,
+                          spans={"poll": t1 - t0,
+                                 "feed": time.monotonic() - t1})
 
     def _host_batch_max_ts(self, ts_s: np.ndarray) -> int:
         """Watermark advance for one batch, computed on the host with the
@@ -195,52 +450,110 @@ class MicroBatchRuntime:
         win = self._uniq_windows[0]
         return cutoff // win > self._last_flush_cutoff // win
 
+    def _grow_margin(self) -> int:
+        """Free rows the grower keeps.  The occupancy stats lag the parked
+        batches, so each parked batch adds one batch's worth of
+        worst-case minting (or half the observed margin) to the base
+        rule: worst = 2x batch; observed = 4x the largest per-batch
+        minting seen, floored at batch/8."""
+        pend = len(self._ring)
+        if self.cfg.grow_margin == "observed":
+            base = max(4 * self._mint_peak, self.cfg.batch_size // 8)
+        else:
+            base = 2 * self.cfg.batch_size
+        return base * (pend + 2) // 2
+
+    def _grow_would_trigger(self) -> bool:
+        """The growth inequality on the current (possibly ring-stale)
+        stats: when true, flush first (fresh stats), then _maybe_grow."""
+        return (self._n_active_peak + self._grow_margin()
+                > self.multi.capacity_per_shard)
+
+    def _maybe_grow(self) -> None:
+        """Grow the slabs BEFORE they can overflow: keep the margin free,
+        doubling up to the ceiling.  Runs right after a flush, so no
+        parked emit straddles the emit-capacity change."""
+        cap = self.multi.capacity_per_shard
+        margin = self._grow_margin()
+        peak = self._n_active_peak
+        if peak + margin <= cap:
+            return
+        new_cap = cap
+        while peak + margin > new_cap and new_cap < self._cap_max:
+            new_cap *= 2
+        if new_cap == cap:
+            return  # at the ceiling; the overflow accounting stands guard
+        if len(self._ring):
+            raise RuntimeError("slab growth with emits parked in the ring")
+        t0 = time.monotonic()
+        self.multi.grow(new_cap)
+        self.counters["state_grown"] += 1
+        log.warning("state slabs grown 2^%d -> 2^%d rows (%d live groups; "
+                    "%.2fs)", cap.bit_length() - 1, new_cap.bit_length() - 1,
+                    peak, time.monotonic() - t0)
+
     def flush_pending(self, reason: str = "close") -> tuple[float, float]:
         """Pull and account every batch parked in the emit ring, in order:
         one pull for up to K batches.  ``reason`` names the trigger (full,
-        watermark, idle, close).  Returns the seconds spent pulling and
-        sinking."""
+        watermark, grow, checkpoint, idle, close).  Returns the seconds
+        spent pulling and sinking."""
+        if self._poisoned:
+            raise RuntimeError("an earlier flush lost parked batches before "
+                               "the sink; restart from the last checkpoint")
         if not len(self._ring):
             return 0.0, 0.0
         t0 = time.monotonic()
-        flushed = self._ring.flush_stacked(self._prefix_pull)
-        t1 = time.monotonic()
-        batch_max = I32_MIN
-        for bufs, _tag in flushed:
-            for idx, pair in enumerate(self.pairs):
-                batch_max = max(batch_max, self._account(pair, bufs[idx]))
-            self.pulls["bytes"] += sum(b.nbytes for b in bufs)
-        self.last_flush = flushed
-        self.pulls["flushes"] += 1
-        self.pulls[reason] += 1
-        self.pulls["batches"] += len(flushed)
+        try:
+            flushed = self._ring.flush_stacked(self._prefix_pull)
+            t1 = time.monotonic()
+            self.last_flush = flushed
+            self.pulls["flushes"] += 1
+            self.pulls[reason] += 1
+            self.pulls["batches"] += len(flushed)
+            batch_max = I32_MIN
+            for bufs, epoch in flushed:
+                for idx, pair in enumerate(self.pairs):
+                    batch_max = max(batch_max,
+                                    self._account(pair, bufs[idx], epoch))
+                self.pulls["bytes"] += sum(b.nbytes for b in bufs)
+        except BaseException:
+            # the ring is empty now, but the sink missed some of its
+            # batches: a later commit would record offsets past them
+            self._poisoned = True
+            raise
         # the device's own batch_max_ts heals any undercount of the host's
         self.max_event_ts = max(self.max_event_ts, batch_max)
         self._last_flush_cutoff = self._cutoff()
         return t1 - t0, time.monotonic() - t1
 
     def step_once(self) -> bool:
-        """Fold one polled batch; False when the source had nothing (an
-        idle poll, which flushes the parked batches)."""
+        """Fold one batch (the prefetched one, else a fresh poll); False
+        when the source had nothing (an idle poll, which flushes the
+        parked batches)."""
         t0 = time.monotonic()
-        cols = self.source.poll(self.cfg.batch_size)
-        n = len(cols)
-        if not n:
+        entry = (self._prefetched.popleft() if self._prefetched
+                 else self._next_batch())
+        if entry is None:
             self.flush_pending("idle")
             return False
-        if n > self.cfg.batch_size:
-            raise ValueError(f"source returned {n} events for a batch of "
-                             f"{self.cfg.batch_size}")
-        t1 = time.monotonic()
-        feed = self._feed(cols)
-        t2 = time.monotonic()
         pull_s = sink_s = 0.0
-        if self._ring.full:
-            pull_s, sink_s = self.flush_pending("full")
-        elif self._wm_flush_due():
-            pull_s, sink_s = self.flush_pending("watermark")
+        grow_due = self._grow_would_trigger()
+        reason = ("full" if self._ring.full
+                  else "watermark" if self._wm_flush_due()
+                  else "grow" if grow_due else None)
+        if reason is not None:
+            pull_s, sink_s = self.flush_pending(reason)
+            self._maybe_grow()
         cutoff = self._cutoff()
-        t3 = time.monotonic()
+        t2 = time.monotonic()
+        feed = entry.feed
+        if entry.ready is not None:
+            # the fold's stream waits for the batch's copies, and the
+            # allocator keeps its buffers until the fold is done with them
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(entry.ready)
+            for t in feed.values():
+                t.record_stream(cur)
         events = None
         if self.time_device_fold and self.device.type == "cuda":
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -252,10 +565,11 @@ class MicroBatchRuntime:
         predicate_s = step._read_flags.wait_s - wait0
         if events is not None:
             events[1].record()
-        self._ring.append(packed, self.counters["batches"])
-        t4 = time.monotonic()
+        self._ring.append(packed, self.epoch)
+        self._offsets_dispatched = entry.offset
+        t3 = time.monotonic()
         # host-side watermark advance: the next batch's cutoff, whatever K
-        bm = self._host_batch_max_ts(cols.ts_s)
+        bm = self._host_batch_max_ts(entry.ts_s)
         if bm > self.max_event_ts:
             if (self.max_event_ts == I32_MIN
                     and self._last_flush_cutoff == I32_MIN):
@@ -265,24 +579,39 @@ class MicroBatchRuntime:
                 self._last_flush_cutoff = (
                     bm - self.cfg.watermark_minutes * 60)
             self.max_event_ts = bm
+        self.epoch += 1
         self.counters["batches"] += 1
-        self.counters["events_polled"] += n
+        self.counters["events_polled"] += entry.n
+        t4 = time.monotonic()
+        # refill the prefetch queue AFTER the dispatch: the next batch's
+        # poll, pad and copy run while the device folds this one
+        while (not self._closing
+               and len(self._prefetched) < self.cfg.prefetch_batches):
+            nxt = self._next_batch()
+            if nxt is None:
+                break
+            self._prefetched.append(nxt)
         t5 = time.monotonic()
-        for name, dt in (("poll", t1 - t0), ("feed", t2 - t1),
+        if self.checkpoint_every and self.epoch % self.checkpoint_every == 0:
+            self._checkpoint()
+        t6 = time.monotonic()
+        for name, dt in (("poll", entry.spans["poll"]),
+                         ("feed", entry.spans["feed"]),
                          ("pull", pull_s), ("sink", sink_s),
-                         ("dispatch", t4 - t3 - predicate_s),
-                         ("predicate", predicate_s)):
+                         ("dispatch", t3 - t2 - predicate_s),
+                         ("predicate", predicate_s),
+                         ("prefetch", t5 - t4), ("checkpoint", t6 - t5)):
             self.span_ms[name].append(dt * 1e3)
         if events is not None:
             # read once the device is done, without waiting for it here
             self._fold_events.append(events)
             self._read_fold_events(wait=False)
-        self.batch_ms.append((t5 - t0) * 1e3)
+        self.batch_ms.append((t6 - t0) * 1e3)
         return True
 
-    def _account(self, pair, packed_pair: np.ndarray) -> int:
-        """Sink one pair's emit rows and book its stats; returns its
-        batch_max_ts."""
+    def _account(self, pair, packed_pair: np.ndarray, epoch: int) -> int:
+        """Sink one pair's emit rows and book its stats (overflow policy,
+        occupancy and minting peaks); returns its batch_max_ts."""
         stats = stats_from_packed(packed_pair)
         body = packed_pair[1:]
         n_docs = int(np.count_nonzero(
@@ -290,25 +619,75 @@ class MicroBatchRuntime:
         if n_docs:
             self.store.upsert_tiles_packed(body, self._pack_meta[pair])
         self.counters["tiles_emitted"] += n_docs
-        self.counters["state_overflow"] += stats.state_overflow
         if pair == self._primary:
             self.counters["events_valid"] += stats.n_valid
             self.counters["events_late"] += stats.n_late
+        self._n_active_peak = max(self._n_active_peak, stats.n_active)
+        # per-batch group minting (grow_margin=observed): the n_active
+        # delta undercounts when evictions freed rows in the same batch,
+        # so add them back; a pair's first observation only seeds the
+        # baseline (after a restore n_active starts at the whole restored
+        # population, which no single batch minted)
+        prev = self._prev_active.get(pair)
+        self._prev_active[pair] = stats.n_active
+        if prev is not None:
+            self._mint_peak = max(self._mint_peak, stats.n_active - prev
+                                  + stats.n_evicted)
+        ovf = stats.state_overflow
+        if ovf:
+            # data loss is never silent: every overflowing batch counts;
+            # the log is rate-limited to once a minute
+            self.counters["state_overflow"] += ovf
+            self.counters["state_overflow_last_epoch"] = epoch
+            now = time.monotonic()
+            if now - self._overflow_logged_at >= 60.0:
+                self._overflow_logged_at = now
+                log.error(
+                    "STATE OVERFLOW: %d distinct (cell,window) groups "
+                    "dropped this batch (%d total); raise "
+                    "STATE_CAPACITY_LOG2 (currently 2^%d rows)", ovf,
+                    self.counters["state_overflow"],
+                    self.multi.capacity_per_shard.bit_length() - 1)
+            if self.cfg.on_overflow == "fail":
+                # no exit commit: offsets and state stay at the last good
+                # checkpoint, so the lost batch replays after the operator
+                # raises the capacity
+                self._fatal = True
+                raise StateOverflowError(
+                    f"{ovf} aggregate groups dropped at state capacity "
+                    f"{self.multi.capacity_per_shard} rows; raise "
+                    f"STATE_CAPACITY_LOG2, or set HEATMAP_ON_OVERFLOW=error "
+                    f"to keep running with the loss counted")
         return stats.batch_max_ts
 
     def close(self) -> None:
-        """Flush the batches still parked in the emit ring."""
-        self.flush_pending("close")
+        """Fold the prefetched batches, flush the ring, commit the exit
+        checkpoint and wait for it.  After a fail-mode overflow or a
+        flush that lost batches before the sink, nothing is folded or
+        committed: the last good commit stays, and its tail replays."""
+        self._closing = True
+        failed = lambda: self._fatal or self._poisoned
+        try:
+            while self._prefetched and not failed():
+                self.step_once()
+            if not self._poisoned:
+                self.flush_pending("close")
+        finally:
+            if not failed():
+                self._checkpoint()
+            self._ckpt_join(raise_errors=not failed())
 
     def run(self, max_batches: int | None = None) -> None:
         """Drive the loop until the source is exhausted (or max_batches),
-        then flush what is parked."""
+        then close."""
         n = 0
-        while max_batches is None or n < max_batches:
-            if self.step_once():
-                n += 1
-            elif self.source.exhausted:
-                break
-            else:
-                time.sleep(0.05)
-        self.close()
+        try:
+            while max_batches is None or n < max_batches:
+                if self.step_once():
+                    n += 1
+                elif self.source.exhausted:
+                    break
+                else:
+                    time.sleep(0.05)
+        finally:
+            self.close()

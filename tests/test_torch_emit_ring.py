@@ -25,7 +25,8 @@ def packs(n_batches, seed=1, emit_capacity=256):
     """Packed emits of ``n_batches`` batches of 128 events folded by the
     port on the CPU: (1, E+1, 13) int32 tensors."""
     rng = np.random.default_rng(seed)
-    agg = MultiAggregator([(8, 300)], 1 << 10, emit_capacity=emit_capacity,
+    agg = MultiAggregator([(8, 300)], 1 << 10, 128,
+                          emit_capacity=emit_capacity,
                           hist_bins=8, device="cpu")
     out = []
     for k in range(n_batches):

@@ -78,7 +78,7 @@ def new_aggs():
     pairs = [(RES, WINDOW_S)]
     j = jmulti.MultiAggregator(pairs, CAP, BATCH, emit_capacity=BATCH,
                                hist_bins=BINS)
-    t = tmulti.MultiAggregator(pairs, CAP, emit_capacity=BATCH,
+    t = tmulti.MultiAggregator(pairs, CAP, BATCH, emit_capacity=BATCH,
                                hist_bins=BINS, device="cpu")
     return j, t
 

@@ -103,8 +103,10 @@ def run_jax(tmp_path):
     return store._tiles, cfg
 
 
-def run_port(source_args=SOURCE_ARGS, axes=AXES, **over):
-    cfg = load_config(None, **axes, **over)
+def run_port(ckpt, source_args=SOURCE_ARGS, axes=AXES, **over):
+    """The port's runtime over the stream, committing to its own fresh
+    checkpoint directory ``ckpt``."""
+    cfg = load_config(None, checkpoint_dir=str(ckpt), **axes, **over)
     store = MemoryStore()
     rt = MicroBatchRuntime(cfg, SyntheticSource(**source_args), store,
                            device="cpu")
@@ -165,7 +167,7 @@ def assert_docs_match(ref_docs, docs, metrics):
 
 def test_runtime_matches_jax_runtime(tmp_path, reference_env):
     ref_docs, ref_cfg = run_jax(tmp_path)
-    docs, rt = run_port()
+    docs, rt = run_port(tmp_path / "port")
     assert ref_cfg.emit_flush_k == rt.cfg.emit_flush_k == 1
     assert rt.pulls["flushes"] == rt.counters["batches"]
     assert_docs_match(ref_docs, docs, rt.metrics)
@@ -173,10 +175,13 @@ def test_runtime_matches_jax_runtime(tmp_path, reference_env):
 
 def test_runtime_defaults_match_jax_defaults(tmp_path, default_env):
     """Each runtime with its own defaults: the fast path over auto (rank
-    here: the slab holds 4x the batch), an emit ring 8 batches deep."""
+    here: the slab holds 4x the batch), an emit ring 8 batches deep.  The
+    JAX side pins its growth ceiling (``run_jax``); at this ratio neither
+    slab grows.  Growth on, at synthetic_backfill's 1:2 ratio, is
+    tests/test_torch_growth.py::test_growth_defaults_match_jax."""
     ref_docs, ref_cfg = run_jax(tmp_path)
     tiers = dict(tstep._merge_fastpath.tiers)
-    docs, rt = run_port()
+    docs, rt = run_port(tmp_path / "port")
     assert ref_cfg.emit_flush_k == rt.cfg.emit_flush_k == 8
     assert rt.cfg.emit_pull == "auto" and not rt._prefix_pull
     taken = {t: n - tiers[t] for t, n in tstep._merge_fastpath.tiers.items()}
@@ -186,7 +191,7 @@ def test_runtime_defaults_match_jax_defaults(tmp_path, default_env):
     assert_docs_match(ref_docs, docs, rt.metrics)
 
 
-# one 5-minute window, 10 batches: only the ring's depth triggers flushes
+# one 5-minute window, 10 batches: no window closes, so no watermark flush
 ONE_WINDOW = dict(n_events=10 * 1024, n_vehicles=300,
                   events_per_second=1024, t0=1_700_000_000 - 200)
 SMALL_AXES = dict(AXES, batch_size=1024, state_capacity_log2=13)
@@ -199,13 +204,13 @@ PAIRS_AXES = dict(AXES, resolutions=(8, 9), windows_minutes=(1, 5))
 @pytest.mark.parametrize("source_args,axes", [
     (ONE_WINDOW, SMALL_AXES), (SOURCE_ARGS, AXES), (SOURCE_ARGS, PAIRS_AXES)],
     ids=["one_window", "windows", "four_pairs"])
-def test_flush_depth_does_not_change_results(default_env, source_args,
-                                             axes):
+def test_flush_depth_does_not_change_results(tmp_path, default_env,
+                                             source_args, axes):
     """K=1 (full pulls) and K=8 (prefix pulls) give the same docs and the
     same counters; only the pulls differ."""
-    docs1, rt1 = run_port(source_args, axes, emit_flush_k=1,
+    docs1, rt1 = run_port(tmp_path / "k1", source_args, axes, emit_flush_k=1,
                           emit_pull="full")
-    docs8, rt8 = run_port(source_args, axes, emit_flush_k=8,
+    docs8, rt8 = run_port(tmp_path / "k8", source_args, axes, emit_flush_k=8,
                           emit_pull="prefix")
     assert rt8._prefix_pull and not rt1._prefix_pull
     assert docs8 == docs1
@@ -216,10 +221,14 @@ def test_flush_depth_does_not_change_results(default_env, source_args,
     assert rt8.pulls["batches"] == batches
     assert rt8.pulls["bytes"] < rt1.pulls["bytes"]
     if source_args is ONE_WINDOW:
-        # flushes at the 9th batch (ring full) and on the idle poll that
-        # finds the source exhausted
-        assert rt8.pulls == dict(rt8.pulls, flushes=2, full=1, idle=1,
-                                 watermark=0, close=0)
+        # flushes before the 7th batch, under growth pressure (the live
+        # groups plus the worst-case minting of 6 parked batches and the
+        # next two pass the 2^13-row slab: runtime._grow_margin), before
+        # the ring is full, and on the idle poll that finds the source
+        # exhausted
+        assert rt8.pulls == dict(rt8.pulls, flushes=2, full=0, grow=1,
+                                 idle=1, watermark=0, close=0)
+        assert rt8.counters["state_grown"] == 0
     else:
         # the stream crosses windows: closing windows flush early
         assert rt8.pulls["watermark"] > 0
@@ -240,13 +249,16 @@ class _ListSource(Source):
         return not self._batches
 
 
-def test_idle_poll_flushes(default_env):
+def test_idle_poll_flushes(tmp_path, default_env):
     cols = SyntheticSource(**ONE_WINDOW).poll(1024)
     store = MemoryStore()
-    rt = MicroBatchRuntime(load_config(None, **SMALL_AXES),
-                           _ListSource([cols, None, cols]), store,
+    rt = MicroBatchRuntime(load_config(None, checkpoint_dir=str(tmp_path),
+                                       **SMALL_AXES),
+                           _ListSource([cols, None, None, cols]), store,
                            device="cpu")
     assert rt.step_once()
+    # the prefetch refill after the dispatch polled the first None: a
+    # refill's empty poll flushes nothing, the step's own poll does
     assert len(rt._ring) == 1 and store.n_tiles == 0
     assert not rt.step_once()                # idle: the parked batch lands
     assert len(rt._ring) == 0 and rt.pulls["idle"] == 1
@@ -270,13 +282,14 @@ def test_flush_knobs_validated():
     assert cfg.emit_flush_k == 8 and cfg.emit_pull == "auto"
 
 
-def test_ops_per_batch_counts_the_dispatched_ops():
+def test_ops_per_batch_counts_the_dispatched_ops(tmp_path):
     """``profile_fold.ops_per_batch`` counts every PyTorch op of one batch
     and the port's own kernel launches, which the CPU makes none of: so on
     the CPU it covers at least the plain snap that runs inside the fold."""
     from heatmap_tpu_torch.profile_fold import _CountOps, ops_per_batch
 
-    rt = MicroBatchRuntime(load_config(None, **AXES),
+    rt = MicroBatchRuntime(load_config(None, checkpoint_dir=str(tmp_path),
+                                       **AXES),
                            SyntheticSource(**SOURCE_ARGS), MemoryStore(),
                            device="cpu")
     assert rt.step_once()
@@ -298,7 +311,9 @@ def test_entry_point_needs_a_card_or_cpu(monkeypatch):
 
 
 _ISOLATION = r"""
+import shutil
 import sys
+import tempfile
 import torch
 from heatmap_tpu_torch.config import load_config
 from heatmap_tpu_torch.sink.memory import MemoryStore
@@ -310,12 +325,14 @@ import heatmap_tpu_torch.hexgrid.snap_kernel
 import heatmap_tpu_torch.profile_fold
 
 cfg = load_config({}, city="bos", h3_res=9, resolutions=(9,),
-                  batch_size=1024, state_capacity_log2=12)
+                  batch_size=1024, state_capacity_log2=12,
+                  checkpoint_dir=tempfile.mkdtemp())
 store = MemoryStore()
 rt = MicroBatchRuntime(cfg, SyntheticSource(n_events=2048), store,
                        device="cpu")
 rt.run()
 assert store.n_tiles > 0
+shutil.rmtree(cfg.checkpoint_dir)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "heatmap_tpu" or m.startswith("heatmap_tpu."))
