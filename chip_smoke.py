@@ -48,9 +48,40 @@ Phases, one JSON line each:
 6. determinism  the first 3 batches twice from a fresh slab, then a flush:
                 the host matrices of the two runs must be byte-identical,
                 batch by batch.
+7. pipelines    hex_pyramid (res 7/8/9 x 5 min) and multi_window (res 8 x
+                1/5/15 min) in their presets' configs through
+                heatmap_tpu_torch.stream, each over a bounded
+                SyntheticSource (2^22 events, 32 batches of 2^17, 20,000
+                vehicles, 2,000 events/s: ~35 minutes of event time, so
+                every window length closes and evicts) in a fresh
+                checkpoint directory.  The kernel against its plain version
+                on the first batch's points at each res (exact, and its
+                time and bound at that shape); snap launches = batches x
+                unique res; each pair's docs identical, byte for byte, to a
+                one-pair run of the same config at that (res, window) over
+                the same stream; conservation for every pair; no overflow;
+                multi_window's watermark flushes > 0.
+8. opensky      opensky_global's config (res 7, a 2^19-row slab, 128
+                histogram bins) for 8 batches of 2^17 over a bounded
+                SyntheticSource spread over 120 x 120 degrees:
+                conservation, no overflow, one snap launch a batch.
+9. kafka        mbta_default through the port's own Kafka ingress: the
+                port's MockKafkaBroker with mobility.positions.v1 on 3
+                partitions, the pipeline's source built first (it starts at
+                LATEST), then 262,144 JSON events in the reference schema
+                produced through the port's KafkaClient, keyed by
+                vehicleId, 96 of them malformed.  The run (a commit every
+                batch) must read them through a KafkaSource (no
+                synthetic fallback): events valid and dropped as produced,
+                docs identical to the same events fed through MemorySource
+                under the same config, and, after a kill following the
+                first commit, a run resumed from the committed {partition:
+                offset} map reaches the same docs.  Two batches deep: the
+                record batches' CRC32C is a Python table walk.
 
-Then one line listing every kernel (launches on the main path, agreement
-with its plain version, its time, the plain version's, the bound), the
+Then one line listing every kernel (launches on the main path and in
+every later phase, agreement with its plain version, its time, the plain
+version's, the bound, by res), the
 card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero; without a CUDA device it exits 2 and prints no result.
@@ -78,6 +109,11 @@ MAIN_RES = 9
 MAIN_BATCH = 1 << 19
 MAIN_EVENTS = 10_000_000    # synthetic_backfill: 20 batches
 MAIN_BATCHES = 20
+# the pipelines phase's stream: 32 batches of the presets' 2^17
+PIPE_SOURCE = dict(n_events=1 << 22, n_vehicles=20_000,
+                   events_per_second=2_000)
+OPENSKY_BATCHES = 8
+KAFKA_EVENTS = 1 << 18      # two batches of mbta_default
 
 
 def emit(obj) -> None:
@@ -653,6 +689,332 @@ def phase_determinism(torch):
           "bytes_per_batch": [len(b) for b in runs[0]]})
 
 
+def pair_docs(docs, grid):
+    return {k: d for k, d in docs.items() if d["grid"] == grid}
+
+
+def run_stats(m, wall, launches, peak_mem):
+    """The numbers every preset phase prints."""
+    return {"events": m["events_valid"], "batches": m["batches"],
+            "wall_s": wall, "events_per_s": m["events_valid"] / wall,
+            "p50_batch_ms": m["p50_batch_ms"],
+            "flushes": m["pulls"], "capacity": m["capacity"],
+            "state_grown": m["state_grown"], "snap_launches": launches,
+            "peak_mem_bytes": peak_mem,
+            "commits": commit_record(m["commits"])}
+
+
+def check_run(name, m, docs, grids, launches, n_res, n_events):
+    """Conservation per pair, no overflow, one launch a batch and res."""
+    if m["state_overflow"]:
+        raise AssertionError(f"{name}: state overflow {m['state_overflow']}")
+    if launches != m["batches"] * n_res:
+        raise AssertionError(f"{name}: snap kernel launched {launches} "
+                             f"times in {m['batches']} batches x {n_res} "
+                             f"res")
+    if m["events_valid"] != n_events:
+        raise AssertionError(f"{name}: {m['events_valid']} events "
+                             f"aggregated of {n_events}")
+    for grid in grids:
+        total = sum(d["count"] for d in pair_docs(docs, grid).values())
+        if total != n_events:
+            raise AssertionError(f"{name} {grid}: counts not conserved: "
+                                 f"docs {total}, events {n_events}")
+
+
+def snap_at_batch(torch, snap_kernel, cols, res_list, dev):
+    """The kernel against its plain version on one batch's points at each
+    res (exact), and its time, the plain version's and the bound there."""
+    lat, lng = (torch.from_numpy(a).to(dev)
+                for a in (cols.lat_rad, cols.lng_rad))
+    out = {}
+    for res in res_list:
+        share, err = compare_cells(torch, snap_kernel, lat, lng, res)
+        if share != 1.0 or err != 0:
+            raise AssertionError(f"snap kernel vs plain at res {res} on the "
+                                 f"preset's first batch: {share} identical, "
+                                 f"max abs err {err}")
+        ms = time_ms(torch, lambda: snap_kernel.latlng_to_cell_kernel(
+            lat, lng, res), inner=20)
+        plain_ms = time_ms(torch, lambda: snap_kernel.latlng_to_cell_reference(
+            lat, lng, res), inner=1)
+        n_pent, steps = pentagon_work(snap_kernel, lat, lng, res)
+        bms, by = bound_ms(len(cols) * 16.0, snap_ops(res, len(cols), n_pent,
+                                                      steps))
+        out[res] = {"points": len(cols), "identical": share,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by}
+    return out
+
+
+def phase_pipelines(torch, run_pipeline, snap_kernel, ckpt_root, dev):
+    """hex_pyramid and multi_window at their presets' widths, each pair
+    against a one-pair run of its own."""
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+    from heatmap_tpu_torch.stream.source import SyntheticSource
+
+    out = {"phase": "pipelines", "source": PIPE_SOURCE, "presets": {}}
+    snaps = {}
+    for name in ("hex_pyramid", "multi_window"):
+        cfg = get_pipeline(name).config
+        uniq_res = list(dict.fromkeys(cfg.resolutions))
+        first = SyntheticSource(**PIPE_SOURCE).poll(cfg.batch_size)
+        snaps[name] = snap_at_batch(torch, snap_kernel, first, uniq_res, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        snap_kernel.latlng_to_cell_kernel.launches = 0
+        t0 = time.monotonic()
+        rt, store = run_pipeline(name, device="cuda",
+                                 checkpoint_dir=f"{ckpt_root}/{name}",
+                                 source=SyntheticSource(**PIPE_SOURCE))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = snap_kernel.latlng_to_cell_kernel.launches
+        peak_mem = torch.cuda.max_memory_allocated()
+        m = rt.metrics
+        grids = {pair: rt.cfg.pair_grid(pair[0], pair[1] // 60)
+                 for pair in rt.pairs}
+        check_run(name, m, store._tiles, grids.values(), launches,
+                  len(uniq_res), PIPE_SOURCE["n_events"])
+        if name == "multi_window" and not m["pulls"]["watermark"]:
+            raise AssertionError(f"multi_window: no watermark flush "
+                                 f"{m['pulls']}")
+        docs, cfg_run = store._tiles, rt.cfg
+        del rt, store
+        torch.cuda.empty_cache()
+        one_pair = {}
+        for (res, win_s), grid in grids.items():
+            one_cfg = dataclasses.replace(
+                cfg_run, resolutions=(res,), windows_minutes=(win_s // 60,),
+                checkpoint_dir=f"{ckpt_root}/{name}-{grid}")
+            one = MemoryStore()
+            ort = MicroBatchRuntime(one_cfg, SyntheticSource(**PIPE_SOURCE),
+                                    one)
+            ort.run()
+            mine = pair_docs(docs, grid)
+            if mine != one._tiles:
+                raise AssertionError(f"{name}: pair {grid}'s docs differ "
+                                     f"from its one-pair run's")
+            one_pair[grid] = {"tiles": len(mine),
+                              "capacity": ort.multi.capacity_per_shard}
+            del ort, one
+            torch.cuda.empty_cache()
+        out["presets"][name] = {
+            **run_stats(m, wall, launches, peak_mem),
+            "pairs": [list(p) for p in grids], "tiles": len(docs),
+            "one_pair_identical": one_pair,
+            "snap_first_batch": {str(r): v for r, v in snaps[name].items()}}
+        del docs
+    emit(out)
+    return out, snaps
+
+
+def phase_opensky(torch, run_pipeline, snap_kernel, ckpt_dir, dev):
+    """opensky_global's config (res 7, 2^19 rows, 128 bins), 8 batches."""
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.stream.source import SyntheticSource
+
+    cfg = get_pipeline("opensky_global").config
+    src_args = dict(n_events=OPENSKY_BATCHES * cfg.batch_size,
+                    n_vehicles=20_000, events_per_second=2_000,
+                    center=(20.0, 0.0), radius_deg=60.0)
+    first = SyntheticSource(**src_args).poll(cfg.batch_size)
+    snap = snap_at_batch(torch, snap_kernel, first, [cfg.h3_res], dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    snap_kernel.latlng_to_cell_kernel.launches = 0
+    t0 = time.monotonic()
+    rt, store = run_pipeline("opensky_global", device="cuda",
+                             checkpoint_dir=ckpt_dir,
+                             source=SyntheticSource(**src_args))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = snap_kernel.latlng_to_cell_kernel.launches
+    m = rt.metrics
+    grid = rt.cfg.pair_grid(cfg.h3_res, 5)
+    check_run("opensky_global", m, store._tiles, [grid], launches, 1,
+              src_args["n_events"])
+    if rt.multi.states[0].hist.shape[1] != 128:
+        raise AssertionError("opensky_global: the slab has "
+                             f"{rt.multi.states[0].hist.shape[1]} bins")
+    out = {"phase": "opensky", "source": src_args,
+           **run_stats(m, wall, launches, torch.cuda.max_memory_allocated()),
+           "hist_bins": cfg.speed_hist_bins, "tiles": len(store._tiles),
+           "snap_first_batch": {str(r): v for r, v in snap.items()}}
+    del rt, store
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def kafka_events():
+    """(keys, values, event dicts in produce order): 2^18 records in the
+    reference schema from a SyntheticSource (2,000 vehicles, 500 events/s:
+    ~9 minutes of event time, inside the 10-minute watermark), ISO and
+    epoch timestamps alternating; 96 of them are rejects: malformed JSON,
+    undecodable bytes, a latitude out of range.  A reject's dict is one
+    that fails the same validation."""
+    from heatmap_tpu_torch.stream.source import SyntheticSource
+
+    cols = SyntheticSource(n_events=KAFKA_EVENTS, n_vehicles=2_000,
+                           events_per_second=500).poll(KAFKA_EVENTS)
+    keys, values, events = [], [], []
+    for i in range(KAFKA_EVENTS):
+        ts = int(cols.ts_s[i])
+        e = {"provider": "mbta", "vehicleId": f"veh-{cols.vehicle_id[i]}",
+             "lat": float(cols.lat_deg[i]), "lon": float(cols.lng_deg[i]),
+             "speedKmh": float(cols.speed_kmh[i]),
+             "ts": ts if i % 2 else time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                                  time.gmtime(ts))}
+        kind = i % 8192
+        if kind == 100:
+            v, e = b'{"provider": "mbta", "lat": ', {"malformed": True}
+        elif kind == 200:
+            v, e = b"\xff\xfe", {"malformed": True}
+        else:
+            if kind == 300:
+                e["lat"] = 95.0
+            v = json.dumps(e).encode()
+        keys.append(f"veh-{cols.vehicle_id[i]}".encode())
+        values.append(v)
+        events.append(e)
+    return keys, values, events
+
+
+def phase_kafka(torch, run_pipeline, snap_kernel, ckpt_root):
+    """mbta_default through the port's own Kafka ingress on a mock broker:
+    against MemorySource, and killed and resumed from its offsets."""
+    import os
+
+    # one fetch returns a whole partition, so each poll fills its batch in
+    # one sweep (4-MiB fetches through the Python CRC would end a poll at
+    # the reference's 0.2-s sweep budget, a short batch) and the batches
+    # cut at 2^17 records, where MemorySource cuts them
+    os.environ["HEATMAP_FETCH_MAX_BYTES"] = str(256 << 20)
+    try:
+        return _kafka_runs(torch, run_pipeline, snap_kernel, ckpt_root)
+    finally:
+        del os.environ["HEATMAP_FETCH_MAX_BYTES"]
+
+
+def _kafka_runs(torch, run_pipeline, snap_kernel, ckpt_root):
+    from heatmap_tpu_torch.kafka import KafkaClient, Record
+    from heatmap_tpu_torch.kafka.client import partition_for_key
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+    from heatmap_tpu_torch.stream.source import KafkaSource, MemorySource
+    from heatmap_tpu_torch.testing.mock_kafka import MockKafkaBroker
+
+    name = "mbta_default"
+    p = get_pipeline(name)
+    batch = p.config.batch_size
+    keys, values, events = kafka_events()
+    n_bad = sum(1 for e in events if "malformed" in e or e["lat"] > 90)
+    out = {"phase": "kafka", "records": len(values), "rejects": n_bad,
+           "partitions": 3}
+    with MockKafkaBroker(num_partitions=3) as bootstrap:
+        over = dict(kafka_bootstrap=bootstrap)
+        cfg = dataclasses.replace(p.config, **over)
+
+        def source():
+            src = p.make_source(cfg)
+            if not isinstance(src, KafkaSource):
+                raise AssertionError(f"{name}: the pipeline fell back to "
+                                     f"{type(src).__name__}")
+            return src
+
+        src_run, src_killed = source(), source()   # both at LATEST
+        t0 = time.monotonic()
+        client = KafkaClient(bootstrap)
+        by_part = {0: [], 1: [], 2: []}
+        for i, (k, v) in enumerate(zip(keys, values)):
+            by_part[partition_for_key(k, 3)].append(i)
+        for part, idx in by_part.items():
+            for j in range(0, len(idx), 4096):
+                client.produce(p.config.kafka_topic, part, [
+                    Record(0, 1_700_000_000_000 + i, keys[i], values[i])
+                    for i in idx[j:j + 4096]])
+        client.close()
+        out["produce_s"] = time.monotonic() - t0
+
+        snap_kernel.latlng_to_cell_kernel.launches = 0
+        t0 = time.monotonic()
+        rt, store = run_pipeline(name, max_batches=2, device="cuda",
+                                 checkpoint_dir=f"{ckpt_root}/kafka",
+                                 checkpoint_every=1, source=src_run, **over)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = snap_kernel.latlng_to_cell_kernel.launches
+        m = rt.metrics
+        n_valid = len(values) - n_bad
+        grid = rt.cfg.pair_grid(rt.cfg.h3_res, rt.cfg.tile_minutes)
+        check_run(name, m, store._tiles, [grid], launches, 1, n_valid)
+        if m["events_invalid"] != n_bad or m["batches"] != 2:
+            raise AssertionError(f"kafka: {m['batches']} batches, "
+                                 f"{m['events_invalid']} dropped of {n_bad} "
+                                 f"rejects")
+        if m["kafka_fetch_errors"] or m["kafka_offset_resets"]:
+            raise AssertionError(f"kafka: transport errors {m}")
+        kafka_docs = store._tiles
+        out.update(run_stats(m, wall, launches,
+                             torch.cuda.max_memory_allocated()))
+        out["p50_span_ms"] = {k: m["p50_span_ms"][k]
+                              for k in ("poll", "fetch", "decode", "feed",
+                                        "dispatch")}
+        out["fetch_ms"] = rt.span_ms["fetch"]
+        out["decode_ms"] = rt.span_ms["decode"]
+        out["tiles"] = len(kafka_docs)
+        del rt, store
+
+        # the same events through MemorySource, partition by partition as
+        # the wire impl's round-robin sweeps read them (the first batch
+        # holds all of partition 0 and the head of 1)
+        order = [i for part in range(3) for i in by_part[part]]
+        mrt, mstore = run_pipeline(
+            name, device="cuda", checkpoint_dir=f"{ckpt_root}/memory",
+            checkpoint_every=1, source=MemorySource(
+                [events[i] for i in order]), max_batches=2, **over)
+        if mstore._tiles != kafka_docs:
+            raise AssertionError("kafka: docs differ from the MemorySource "
+                                 "run's")
+        del mrt, mstore
+
+        # killed after the first commit, resumed from its offsets
+        ckpt = f"{ckpt_root}/kafka-killed"
+        killed_cfg = dataclasses.replace(cfg, checkpoint_dir=ckpt)
+        store = MemoryStore()
+        krt = MicroBatchRuntime(killed_cfg, src_killed, store,
+                                checkpoint_every=1)
+        if not krt.step_once():
+            raise AssertionError("kafka: the first batch read nothing")
+        krt._ckpt_join()
+        committed = krt.ckpt.load_meta()["offset"]
+        del krt
+        src_killed.close()
+        t0 = time.monotonic()
+        rrt = MicroBatchRuntime(killed_cfg, source(), store,
+                                checkpoint_every=1)
+        seeked = rrt.source.offset()
+        if seeked != {int(k): v for k, v in committed.items()}:
+            raise AssertionError(f"kafka: resumed at {seeked}, committed "
+                                 f"{committed}")
+        rrt.run(max_batches=1)
+        recover_s = time.monotonic() - t0
+        if rrt.epoch != 2 or store._tiles != kafka_docs:
+            raise AssertionError("kafka: the resumed run's docs differ from "
+                                 "the uninterrupted run's")
+        del rrt
+    torch.cuda.empty_cache()
+    out.update(source="KafkaSource", docs_equal_memory_source=True,
+               committed_offsets=committed, resumed_docs_equal=True,
+               resume_s=recover_s)
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -699,6 +1061,20 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     phase_determinism(torch)
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke-ckpt-")
+    try:
+        pipes, pipe_snaps = phase_pipelines(torch, run_pipeline, snap_kernel,
+                                            ckpt_root, dev)
+        opensky = phase_opensky(torch, run_pipeline, snap_kernel,
+                                f"{ckpt_root}/opensky", dev)
+        kafka = phase_kafka(torch, run_pipeline, snap_kernel, ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    by_res = {}
+    for snaps in pipe_snaps.values():
+        for res, v in snaps.items():
+            by_res.setdefault(str(res), {k: v[k] for k in (
+                "points", "ms", "plain_ms", "bound_ms", "bound_by")})
 
     emit({"kernels": [{
         "name": "snap_cell",
@@ -707,6 +1083,10 @@ def main() -> int:
         "replaces": "heatmap_tpu/hexgrid/pallas_kernel.py:66",
         "launches": fold["snap_launches"],
         "launches_resume_phase": resume["snap_launches"],
+        "launches_pipelines_phase": {
+            k: v["snap_launches"] for k, v in pipes["presets"].items()},
+        "launches_opensky_phase": opensky["snap_launches"],
+        "launches_kafka_phase": kafka["snap_launches"],
         "max_abs_err": main_err,
         "identical_share": main_share,
         "ms": snap["ms"],
@@ -714,6 +1094,7 @@ def main() -> int:
         "bound_ms": snap["bound_ms"],
         "bound_by": snap["bound_by"],
         "library_ms": None,
+        "by_res_at_preset_batch": by_res,
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

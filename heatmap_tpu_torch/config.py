@@ -32,6 +32,8 @@ def _default_checkpoint_dir() -> str:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    kafka_bootstrap: str = "localhost:9092"
+    kafka_topic: str = "mobility.positions.v1"
     city: str = "ath"
     checkpoint_dir: str = dataclasses.field(
         default_factory=_default_checkpoint_dir)
@@ -79,6 +81,8 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
     """Build a Config from env vars (same names as the reference) + overrides."""
     e = dict(os.environ if env is None else env)
     cfg = Config(
+        kafka_bootstrap=e.get("KAFKA_BOOTSTRAP", Config.kafka_bootstrap),
+        kafka_topic=e.get("KAFKA_TOPIC", Config.kafka_topic),
         city=e.get("CITY", Config.city),
         checkpoint_dir=e.get("CHECKPOINT", _default_checkpoint_dir()),
         h3_res=_int(e, "H3_RES", Config.h3_res),

@@ -4,8 +4,10 @@ checkpoints, slab growth and a prefetched feed.
 The counterpart of the single-device path of
 ``heatmap_tpu/stream/runtime.py``:
 
-  poll -> pad into pinned host buffers -> host->device copy (on a side
-  stream, one batch ahead of the fold: ``prefetch_batches``) -> fused fold
+  poll (columns, or event dicts parsed here with the reference's
+  validation; rejects count as ``events_invalid``) -> pad into pinned
+  host buffers -> host->device copy (on a side stream, one batch ahead
+  of the fold: ``prefetch_batches``) -> fused fold
   of every (res, window) pair (engine.multi) -> the packed emits parked in
   an ``EmitRing`` on the device -> one pull of every parked batch (a live
   prefix of each on CUDA) -> tile docs into the store -> every
@@ -56,6 +58,7 @@ from heatmap_tpu_torch.engine.state import TileState, to_host
 from heatmap_tpu_torch.engine.step import FUTURE_WINDOWS, I32_MIN, EmitRing
 from heatmap_tpu_torch.sink.base import Store, TilePackMeta
 from heatmap_tpu_torch.stream.checkpoint import CheckpointManager
+from heatmap_tpu_torch.stream.events import EventColumns, parse_events
 from heatmap_tpu_torch.stream.source import Source
 
 log = logging.getLogger(__name__)
@@ -79,7 +82,8 @@ class _FeedBatch(NamedTuple):
     host: dict           # the pinned host buffers the copies read from
     ready: object        # CUDA event after the copies (None on the CPU)
     offset: object       # source offset after this batch's poll
-    spans: dict          # poll and feed seconds
+    spans: dict          # poll and feed seconds, and the source's own
+                         # poll sub-spans (fetch, decode) when it has them
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -194,7 +198,8 @@ class MicroBatchRuntime:
         # (once landed) background seconds and bytes on disk
         self.commits: list[dict] = []
         self.counters = {"batches": 0, "events_polled": 0, "events_valid": 0,
-                         "events_late": 0, "tiles_emitted": 0,
+                         "events_late": 0, "events_invalid": 0,
+                         "tiles_emitted": 0,
                          "state_overflow": 0, "state_grown": 0,
                          "checkpoints": 0}
         # emit pulls: flushes in all and by trigger, batches and bytes
@@ -211,7 +216,9 @@ class MicroBatchRuntime:
         # predicate (the host's wait on the fold's tier predicate read,
         # engine.step._read_flags), prefetch (the next batch's poll and
         # feed, after this dispatch), checkpoint (the flush before it and
-        # the capture on this thread; 0 on most batches); and, when
+        # the capture on this thread; 0 on most batches); fetch and decode
+        # (inside the poll, from a source that reports them: a Kafka
+        # source's broker round trips and value decode); and, when
         # time_device_fold is set on a CUDA run, the fold's device time
         # from CUDA events (off by default: two events per batch that only
         # a profiling run reads)
@@ -219,13 +226,16 @@ class MicroBatchRuntime:
         self.span_ms: dict[str, list[float]] = {
             k: [] for k in ("poll", "feed", "pull", "sink", "dispatch",
                             "predicate", "prefetch", "checkpoint",
-                            "device_fold")}
+                            "fetch", "decode", "device_fold")}
         # the last flush's batches: [([host matrix per pair], epoch)]
         self.last_flush: list = []
         self._fold_events: list = []  # CUDA event pairs not yet read
         # seconds a resume spent reading the commit's npz files (load) and
         # putting the slabs on the device (restore); empty without one
         self.resume_s: dict[str, float] = {}
+        # provider/vehicle intern maps for sources that poll event dicts
+        self._intern_p: dict = {}
+        self._intern_v: dict = {}
         self._maybe_resume()
         # offsets as of the last DISPATCHED batch: checkpoints commit
         # these, so a batch polled but not dispatched always replays
@@ -358,11 +368,13 @@ class MicroBatchRuntime:
 
     @property
     def metrics(self) -> dict:
-        """Counters, emit pulls, slab capacity, commits, and the median
-        batch wall time and spans (ms)."""
+        """Counters (the source's transport counters merged in), emit
+        pulls, slab capacity, commits, and the median batch wall time and
+        spans (ms)."""
         self._read_fold_events(wait=True)
         p50 = lambda xs: float(np.median(xs)) if xs else None
         out = dict(self.counters)
+        out.update(self.source.counters)
         out["pulls"] = dict(self.pulls)
         out["capacity"] = self.multi.capacity_per_shard
         out["commits"] = [dict(c) for c in self.commits]
@@ -374,18 +386,34 @@ class MicroBatchRuntime:
         return (self.max_event_ts - self.cfg.watermark_minutes * 60
                 if self.max_event_ts > I32_MIN else I32_MIN)
 
+    def _build_batch(self, polled) -> EventColumns | None:
+        """A poll's result as columns: event dicts are parsed with the
+        reference's validation (persistent intern maps), and the rejects
+        of either form count as ``events_invalid``; None when no valid
+        event is left."""
+        if isinstance(polled, EventColumns):
+            cols = polled
+        else:
+            if not polled:
+                return None
+            cols = parse_events(polled, self._intern_p, self._intern_v)
+        self.counters["events_invalid"] += cols.n_dropped
+        return cols if len(cols) else None
+
     def _next_batch(self) -> _FeedBatch | None:
         """Poll one batch, pad it to the feed shape in fresh host buffers
-        and start its copies to the device; None on an empty poll.  On
-        CUDA the buffers are pinned, from PyTorch's caching host
-        allocator (which hands a buffer out again only once its copy has
-        finished), and the copies run on the side stream: the fold's
+        and start its copies to the device; None on a poll with no valid
+        event.  On CUDA the buffers are pinned, from PyTorch's caching
+        host allocator (which hands a buffer out again only once its copy
+        has finished), and the copies run on the side stream: the fold's
         stream waits on ``ready`` when the batch is dispatched."""
         t0 = time.monotonic()
-        cols = self.source.poll(self.cfg.batch_size)
-        n = len(cols)
-        if not n:
+        polled = self.source.poll(self.cfg.batch_size)
+        src_spans = self.source.take_spans()
+        cols = self._build_batch(polled)
+        if cols is None:
             return None
+        n = len(cols)
         if n > self.cfg.batch_size:
             raise ValueError(f"source returned {n} events for a batch of "
                              f"{self.cfg.batch_size}")
@@ -415,7 +443,7 @@ class MicroBatchRuntime:
                 ready.record()
         return _FeedBatch(ts_s=cols.ts_s, n=n, feed=feed, host=host,
                           ready=ready, offset=offset,
-                          spans={"poll": t1 - t0,
+                          spans={**src_spans, "poll": t1 - t0,
                                  "feed": time.monotonic() - t1})
 
     def _host_batch_max_ts(self, ts_s: np.ndarray) -> int:
@@ -595,6 +623,9 @@ class MicroBatchRuntime:
         if self.checkpoint_every and self.epoch % self.checkpoint_every == 0:
             self._checkpoint()
         t6 = time.monotonic()
+        for name in ("fetch", "decode"):
+            if name in entry.spans:
+                self.span_ms[name].append(entry.spans[name] * 1e3)
         for name, dt in (("poll", entry.spans["poll"]),
                          ("feed", entry.spans["feed"]),
                          ("pull", pull_s), ("sink", sink_s),
@@ -662,20 +693,24 @@ class MicroBatchRuntime:
 
     def close(self) -> None:
         """Fold the prefetched batches, flush the ring, commit the exit
-        checkpoint and wait for it.  After a fail-mode overflow or a
-        flush that lost batches before the sink, nothing is folded or
-        committed: the last good commit stays, and its tail replays."""
+        checkpoint and wait for it, then close the source.  After a
+        fail-mode overflow or a flush that lost batches before the sink,
+        nothing is folded or committed: the last good commit stays, and
+        its tail replays."""
         self._closing = True
         failed = lambda: self._fatal or self._poisoned
         try:
-            while self._prefetched and not failed():
-                self.step_once()
-            if not self._poisoned:
-                self.flush_pending("close")
+            try:
+                while self._prefetched and not failed():
+                    self.step_once()
+                if not self._poisoned:
+                    self.flush_pending("close")
+            finally:
+                if not failed():
+                    self._checkpoint()
+                self._ckpt_join(raise_errors=not failed())
         finally:
-            if not failed():
-                self._checkpoint()
-            self._ckpt_join(raise_errors=not failed())
+            self.source.close()
 
     def run(self, max_batches: int | None = None) -> None:
         """Drive the loop until the source is exhausted (or max_batches),

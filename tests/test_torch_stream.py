@@ -323,6 +323,24 @@ import heatmap_tpu_torch.stream.__main__
 import heatmap_tpu_torch._build
 import heatmap_tpu_torch.hexgrid.snap_kernel
 import heatmap_tpu_torch.profile_fold
+import heatmap_tpu_torch.models.bench_pipelines
+from heatmap_tpu_torch.kafka import KafkaClient, Record
+from heatmap_tpu_torch.models.pipelines import PIPELINES
+from heatmap_tpu_torch.stream.source import KafkaSource, MemorySource
+from heatmap_tpu_torch.testing.mock_kafka import MockKafkaBroker
+from heatmap_tpu_torch.utils.netio import recv_exact
+
+# the Kafka ingress over a mock broker, the wire client, the registry
+with MockKafkaBroker() as bootstrap:
+    src = KafkaSource(bootstrap, "mobility.positions.v1")
+    c = KafkaClient(bootstrap)
+    c.produce("mobility.positions.v1", 1, [Record(0, 0, b"k", (
+        b'{"provider": "p", "vehicleId": "v", "lat": 42.3, "lon": -71.0, '
+        b'"ts": 1700000000}'))])
+    c.close()
+    assert len(src.poll(10)) == 1
+    src.close()
+assert len(PIPELINES) == 5 and len(MemorySource([{}]).poll(5)) == 1
 
 cfg = load_config({}, city="bos", h3_res=9, resolutions=(9,),
                   batch_size=1024, state_capacity_log2=12,
