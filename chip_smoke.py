@@ -5,7 +5,8 @@
 
 Phases, one JSON line each:
 
-1. build        compile every CUDA kernel of the package with nvcc (sm_90a).
+1. build        compile every CUDA kernel of the package with nvcc (sm_90a)
+                and the native host codecs with g++, all at once.
 2. snap         the fused H3 snap kernel (lat, lng -> index words hi, lo)
                 against its plain PyTorch version on the card: 2^20
                 Boston-box points, 2^20 global points and 12 x 2^16 points
@@ -27,14 +28,17 @@ Phases, one JSON line each:
                 over the auto impl, an emit ring 8 batches deep with
                 live-prefix pulls, one batch prefetched, slab growth with
                 its pressure flush, a checkpoint every 20 batches and at
-                close.  10M events, 20 batches of 2^19, a slab of 2^20
-                rows with 64 histogram bins that must grow once, to 2^21;
+                close, and the positions fold into positions_latest through
+                the writer thread.  10M events, 20 batches of 2^19, a slab
+                of 2^20 rows with 64 histogram bins that must grow once, to
+                2^21;
                 the flushes by trigger must equal the JAX runtime's
                 arithmetic for this stream (``reference_flushes``), and
                 2 commits must land.  The snap kernel must launch once a
                 batch, no group may overflow, the tile docs' counts must
-                sum to the events aggregated, and the pulls must cover
-                every batch.  Then, outside the timed run, the ops each of
+                sum to the events aggregated, the pulls must cover
+                every batch, and positions_latest must hold each vehicle
+                at its newest second.  Then, outside the timed run, the ops each of
                 the first batches dispatches (by tier) and the
                 synchronisations of a steady batch that flushes nothing:
                 exactly one, the fold's tier-predicate read.
@@ -42,8 +46,8 @@ Phases, one JSON line each:
                 runtime abandoned 3 batches after the commit (its commit
                 joined, no close), then a new runtime on the same
                 directory and store: its restored slab must equal the
-                committed npz byte for byte, and the final docs the fold
-                phase's exactly; prints the time to recover (construction
+                committed npz byte for byte, and the final tile and
+                position docs the fold phase's exactly; prints the time to recover (construction
                 plus the first batch) and the snap launches of both runs.
 6. determinism  the first 3 batches twice from a fresh slab, then a flush:
                 the host matrices of the two runs must be byte-identical,
@@ -65,19 +69,33 @@ Phases, one JSON line each:
                 histogram bins) for 8 batches of 2^17 over a bounded
                 SyntheticSource spread over 120 x 120 degrees:
                 conservation, no overflow, one snap launch a batch.
-9. kafka        mbta_default through the port's own Kafka ingress: the
-                port's MockKafkaBroker with mobility.positions.v1 on 3
-                partitions, the pipeline's source built first (it starts at
-                LATEST), then 262,144 JSON events in the reference schema
-                produced through the port's KafkaClient, keyed by
-                vehicleId, 96 of them malformed.  The run (a commit every
-                batch) must read them through a KafkaSource (no
-                synthetic fallback): events valid and dropped as produced,
-                docs identical to the same events fed through MemorySource
-                under the same config, and, after a kill following the
-                first commit, a run resumed from the committed {partition:
-                offset} map reaches the same docs.  Two batches deep: the
-                record batches' CRC32C is a Python table walk.
+9. kafka        mbta_default through the port's own Kafka ingress on its
+                native codecs (the C++ CRC32C, record framing and JSON
+                decoder, built with g++ in the build phase): the port's
+                MockKafkaBroker with mobility.positions.v1 on 3 partitions,
+                the sources built first (they start at LATEST), then 2^20
+                JSON events in the reference schema (4,096 vehicles, 512 s
+                of event time) produced through the port's KafkaClient,
+                keyed by vehicleId, 384 of them rejects.  The snap kernel
+                against its plain version on the first Kafka batch (exact),
+                then the same stream, 8 batches of 2^17, into the three
+                stores that HEATMAP_STORE selects: memory, jsonl
+                (<CHECKPOINT>/store.jsonl, reloaded after close) and mongo
+                (the port's MockMongod over the wire client and the C++
+                BSON encoders).  Every value decoded natively (no Python
+                fallback blob), events valid and dropped as produced, one
+                snap launch a batch; the three stores' tile and
+                positions_latest docs the same (Mongo's floats within the
+                reference's 1e-15 between its two encoders), the positions
+                the newest event of each vehicle; the docs equal to the same
+                events fed through MemorySource in the order the source's
+                sweeps read them; a run killed after its commit at epoch 3
+                and one more batch, resumed from the committed {partition:
+                offset} map into the same Mongo database, reaches the
+                uninterrupted Mongo run's docs.  Then, uncompared, the
+                topic read at the default 4-MiB fetch, and each native
+                codec's host time on one 2^17 batch beside its Python
+                version.
 
 Then one line listing every kernel (launches on the main path and in
 every later phase, agreement with its plain version, its time, the plain
@@ -91,6 +109,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -113,7 +132,8 @@ MAIN_BATCHES = 20
 PIPE_SOURCE = dict(n_events=1 << 22, n_vehicles=20_000,
                    events_per_second=2_000)
 OPENSKY_BATCHES = 8
-KAFKA_EVENTS = 1 << 18      # two batches of mbta_default
+KAFKA_EVENTS = 1 << 20      # eight batches of mbta_default
+KAFKA_SOURCE = dict(n_vehicles=4_096, events_per_second=2_048)
 
 
 def emit(obj) -> None:
@@ -259,13 +279,21 @@ def pentagon_work(snap_kernel, lat, lng, res):
 
 
 def phase_build(_build):
+    """Every CUDA kernel (nvcc) and the native host codecs (g++), built
+    from the checkout's sources, all compilers started together."""
     t0 = time.monotonic()
     libs = _build.build_all()
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
+    gxx = subprocess.run([_build.find_gxx(), "--version"],
+                         capture_output=True, text=True, check=True)
     emit({"phase": "build", "seconds": time.monotonic() - t0,
-          "libraries": [str(p.name) for p in libs.values()],
-          "nvcc": nvcc.stdout.strip().splitlines()[-1]})
+          "libraries": {src: {"path": str(path), "seconds": secs,
+                              "hash": path.stem.rsplit("-", 1)[1]}
+                        for src, (path, secs) in libs.items()},
+          "nvcc": nvcc.stdout.strip().splitlines()[-1],
+          "gxx": gxx.stdout.strip().splitlines()[0],
+          "gxx_flags": list(_build.GXX_FLAGS)})
 
 
 def phase_snap(torch, snap_kernel, dev):
@@ -486,6 +514,7 @@ def commit_record(commits):
 def phase_fold(torch, run_pipeline, snap_kernel, ckpt_dir):
     from heatmap_tpu_torch.engine import step
     from heatmap_tpu_torch.profile_fold import per_batch_counts
+    from heatmap_tpu_torch.sink.memory import MemoryStore
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -494,14 +523,14 @@ def phase_fold(torch, run_pipeline, snap_kernel, ckpt_dir):
         step._merge_fastpath.tiers[t] = 0
     t0 = time.monotonic()
     rt, store = run_pipeline("synthetic_backfill", device="cuda",
-                             checkpoint_dir=ckpt_dir)
+                             checkpoint_dir=ckpt_dir, store=MemoryStore())
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = snap_kernel.latlng_to_cell_kernel.launches
     tiers = dict(step._merge_fastpath.tiers)
     m = rt.metrics
     pulls = m["pulls"]
-    docs = store._tiles
+    docs, positions = store._tiles, store._positions
     total = sum(d["count"] for d in docs.values())
     if launches != m["batches"]:
         raise AssertionError(f"snap kernel launched {launches} times in "
@@ -548,9 +577,24 @@ def phase_fold(torch, run_pipeline, snap_kernel, ckpt_dir):
                *d["centroid"]["coordinates"]))]
     if bad:
         raise AssertionError(f"non-finite doc fields: {bad[:3]}")
+    # positions_latest: one doc a vehicle, at its newest event's second
+    # (event i is vehicle i % n_vehicles at t0 + i // events_per_second)
+    src = rt.source
+    v = np.arange(src.n_vehicles)
+    last = v + src.n_vehicles * ((MAIN_EVENTS - 1 - v) // src.n_vehicles)
+    want_ts = {f"veh-{k}": int(src.t0 + i // src.eps)
+               for k, i in zip(v, last)}
+    got_ts = {d["vehicleId"]: int(d["ts"].timestamp())
+              for d in positions.values()}
+    if (got_ts != want_ts
+            or m["positions_written"] != m["positions_emitted"]):
+        raise AssertionError(f"positions_latest: {len(positions)} docs for "
+                             f"{src.n_vehicles} vehicles, written "
+                             f"{m['positions_written']} of emitted "
+                             f"{m['positions_emitted']}")
     peak_mem = torch.cuda.max_memory_allocated()
     spans = {k: m["p50_span_ms"][k] for k in ("poll", "feed", "dispatch",
-                                              "prefetch")}
+                                              "positions", "prefetch")}
     del rt, store
     torch.cuda.empty_cache()
     counts = per_batch_counts()
@@ -565,6 +609,11 @@ def phase_fold(torch, run_pipeline, snap_kernel, ckpt_dir):
            "events_per_s": m["events_valid"] / wall,
            "p50_batch_ms": m["p50_batch_ms"], "p50_span_ms": spans,
            "tiles": len(docs), "tiles_emitted": m["tiles_emitted"],
+           "positions": len(positions),
+           "positions_emitted": m["positions_emitted"],
+           "writer": {k: m[k] for k in ("tiles_written", "positions_written",
+                                        "sink_retries",
+                                        "sink_backpressure_ms")},
            "peak_mem_bytes": peak_mem,
            "snap_launches": launches, "tiers": tiers, "pulls": pulls,
            "reference_flushes": want, "live_groups_peak": peak,
@@ -573,10 +622,10 @@ def phase_fold(torch, run_pipeline, snap_kernel, ckpt_dir):
            "bytes_pulled_per_batch": bytes_per_batch,
            "per_batch": counts["ops"], "steady_batch_syncs": syncs}
     emit(out)
-    return out, docs
+    return out, docs, positions
 
 
-def phase_resume(torch, snap_kernel, fold_docs, ckpt_dir):
+def phase_resume(torch, snap_kernel, fold_docs, fold_positions, ckpt_dir):
     """Kill after a commit and 3 more batches, resume on the same
     directory and store: the restored slab equals the commit, the final
     docs equal an uninterrupted run's."""
@@ -596,6 +645,7 @@ def phase_resume(torch, snap_kernel, fold_docs, ckpt_dir):
         if not rt.step_once():
             raise AssertionError("synthetic_backfill ran dry")
     rt._ckpt_join()          # the commit lands; then the process "dies"
+    rt.writer.drain()        # (what it handed its writer had landed)
     # batch wall times and predicate waits: the commit's background
     # thread runs beside the last 3 (do its D2H and np.savez slow the
     # step thread?)
@@ -642,7 +692,7 @@ def phase_resume(torch, snap_kernel, fold_docs, ckpt_dir):
     if (rt.epoch != MAIN_BATCHES or m["batches"] != MAIN_BATCHES - every
             or m["state_overflow"]):
         raise AssertionError(f"resumed run: epoch {rt.epoch}, {m}")
-    if store._tiles != fold_docs:
+    if store._tiles != fold_docs or store._positions != fold_positions:
         raise AssertionError("the resumed run's docs differ from the "
                              "uninterrupted run's")
     out = {"phase": "resume", "killed_after_batches": first["batches"],
@@ -653,7 +703,8 @@ def phase_resume(torch, snap_kernel, fold_docs, ckpt_dir):
            "resumed_batches": m["batches"], "resumed_pulls": m["pulls"],
            "capacity": m["capacity"], "commits": commit_record(m["commits"]),
            "snap_launches": launches, "slab_identical": True,
-           "docs_identical": True, "tiles": len(store._tiles)}
+           "docs_identical": True, "tiles": len(store._tiles),
+           "positions": len(store._positions)}
     del rt
     torch.cuda.empty_cache()
     emit(out)
@@ -768,7 +819,8 @@ def phase_pipelines(torch, run_pipeline, snap_kernel, ckpt_root, dev):
         t0 = time.monotonic()
         rt, store = run_pipeline(name, device="cuda",
                                  checkpoint_dir=f"{ckpt_root}/{name}",
-                                 source=SyntheticSource(**PIPE_SOURCE))
+                                 source=SyntheticSource(**PIPE_SOURCE),
+                                 store=MemoryStore())
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = snap_kernel.latlng_to_cell_kernel.launches
@@ -814,6 +866,7 @@ def phase_pipelines(torch, run_pipeline, snap_kernel, ckpt_root, dev):
 def phase_opensky(torch, run_pipeline, snap_kernel, ckpt_dir, dev):
     """opensky_global's config (res 7, 2^19 rows, 128 bins), 8 batches."""
     from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.sink.memory import MemoryStore
     from heatmap_tpu_torch.stream.source import SyntheticSource
 
     cfg = get_pipeline("opensky_global").config
@@ -828,7 +881,8 @@ def phase_opensky(torch, run_pipeline, snap_kernel, ckpt_dir, dev):
     t0 = time.monotonic()
     rt, store = run_pipeline("opensky_global", device="cuda",
                              checkpoint_dir=ckpt_dir,
-                             source=SyntheticSource(**src_args))
+                             source=SyntheticSource(**src_args),
+                             store=MemoryStore())
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = snap_kernel.latlng_to_cell_kernel.launches
@@ -850,16 +904,17 @@ def phase_opensky(torch, run_pipeline, snap_kernel, ckpt_dir, dev):
 
 
 def kafka_events():
-    """(keys, values, event dicts in produce order): 2^18 records in the
-    reference schema from a SyntheticSource (2,000 vehicles, 500 events/s:
-    ~9 minutes of event time, inside the 10-minute watermark), ISO and
-    epoch timestamps alternating; 96 of them are rejects: malformed JSON,
-    undecodable bytes, a latitude out of range.  A reject's dict is one
-    that fails the same validation."""
+    """(keys, values, event dicts in produce order): 2^20 records in the
+    reference schema from a SyntheticSource (4,096 vehicles, 2,048 events/s:
+    512 s of event time, inside the 10-minute watermark however the
+    partitions interleave, and each vehicle's events 2 s apart, so its
+    newest is unique), ISO and epoch timestamps alternating; 3 of every
+    8,192 are rejects: malformed JSON, undecodable bytes, a latitude out
+    of range.  A reject's dict is one that fails the same validation."""
     from heatmap_tpu_torch.stream.source import SyntheticSource
 
-    cols = SyntheticSource(n_events=KAFKA_EVENTS, n_vehicles=2_000,
-                           events_per_second=500).poll(KAFKA_EVENTS)
+    cols = SyntheticSource(n_events=KAFKA_EVENTS, **KAFKA_SOURCE).poll(
+        KAFKA_EVENTS)
     keys, values, events = [], [], []
     for i in range(KAFKA_EVENTS):
         ts = int(cols.ts_s[i])
@@ -883,54 +938,156 @@ def kafka_events():
     return keys, values, events
 
 
-def phase_kafka(torch, run_pipeline, snap_kernel, ckpt_root):
-    """mbta_default through the port's own Kafka ingress on a mock broker:
-    against MemorySource, and killed and resumed from its offsets."""
-    import os
+def kafka_poll_order(by_part, batch, n_polls):
+    """Record indices in the order the port's KafkaSource reads them on its
+    native path: each poll one sweep of the partitions from a cursor that
+    advances by one a poll, each fetch returning the rest of its partition
+    (HEATMAP_FETCH_MAX_BYTES 256 MiB), until the batch is full."""
+    pos = {p: 0 for p in by_part}
+    order = []
+    for k in range(n_polls):
+        room = batch
+        for j in range(len(by_part)):
+            p = (k + j) % len(by_part)
+            take = by_part[p][pos[p]:pos[p] + room]
+            pos[p] += len(take)
+            room -= len(take)
+            order += take
+            if not room:
+                break
+    return order
 
-    # one fetch returns a whole partition, so each poll fills its batch in
-    # one sweep (4-MiB fetches through the Python CRC would end a poll at
-    # the reference's 0.2-s sweep budget, a short batch) and the batches
-    # cut at 2^17 records, where MemorySource cuts them
+
+def newest_positions(events):
+    """{vehicleId: (ts, lat, lon)} of each vehicle's newest valid event."""
+    from heatmap_tpu_torch.stream.events import parse_events
+
+    cols = parse_events(events)
+    out = {}
+    for i in np.argsort(cols.ts_s, kind="stable"):
+        out[cols.vehicles[cols.vehicle_id[i]]] = (
+            int(cols.ts_s[i]), float(cols.lat_deg[i]),
+            float(cols.lng_deg[i]))
+    return out
+
+
+def store_contents(store):
+    """(tiles by _id, positions by _id) a store holds."""
+    if hasattr(store, "_b"):                 # MongoStore: read it back
+        tiles = {d["_id"]: d for d in store._b.find("tiles", {})}
+    else:
+        tiles = store._tiles
+    return tiles, {d["_id"]: d for d in store.all_positions()}
+
+
+def docs_match(a, b) -> float:
+    """Two stores' docs by ``_id``: the same ids, fields and values, except
+    that a float may differ by the relative 1e-15 that the reference allows
+    between its C++ tile encoder and its Python doc path
+    (tests/test_native_encode.py; the C++ stddev rounds once more or less).
+    Returns the largest relative float difference; raises on any other."""
+    import math
+
+    if a.keys() != b.keys():
+        raise AssertionError(f"doc ids differ: {len(a.keys() ^ b.keys())}")
+    worst = 0.0
+    for k, x in a.items():
+        y = b[k]
+        if x.keys() != y.keys():
+            raise AssertionError(f"{k}: fields differ")
+        for f, u in x.items():
+            v = y[f]
+            if isinstance(u, float) and isinstance(v, float):
+                if not math.isclose(u, v, rel_tol=1e-15, abs_tol=1e-300):
+                    raise AssertionError(f"{k} {f}: {u!r} != {v!r}")
+                if u != v:
+                    worst = max(worst, abs(u - v) / max(abs(u), abs(v)))
+            elif u != v:
+                raise AssertionError(f"{k} {f}: {u!r} != {v!r}")
+    return worst
+
+
+def kafka_run_stats(m, wall, launches, peak_mem):
+    """What the kafka phase prints for each run."""
+    return {**run_stats(m, wall, launches, peak_mem),
+            "p50_span_ms": {k: m["p50_span_ms"][k] for k in (
+                "poll", "fetch", "decode", "feed", "dispatch", "positions",
+                "sink")},
+            "writer": {k: m[k] for k in (
+                "tiles_written", "positions_written", "sink_retries",
+                "sink_backpressure_ms")},
+            "positions_emitted": m["positions_emitted"],
+            "values_decoded": {k: m[f"values_decoded_{k}"]
+                               for k in ("native", "python")},
+            "kafka_native_fallback_blobs": m["kafka_native_fallback_blobs"]}
+
+
+def check_native_path(what, m, n_values):
+    """Every value went through the native codecs."""
+    if (m["values_decoded_native"] != n_values
+            or m["values_decoded_python"] or m["kafka_native_fallback_blobs"]
+            or m["kafka_fetch_errors"] or m["kafka_offset_resets"]):
+        raise AssertionError(f"kafka {what}: not all {n_values} values "
+                             f"decoded natively, or transport errors: {m}")
+
+
+def phase_kafka(torch, run_pipeline, snap_kernel, ckpt_root, dev):
+    """mbta_default through the port's own Kafka ingress on a mock broker,
+    on the native codecs, into three stores: against MemorySource, killed
+    and resumed from its offsets, and once at the default fetch size."""
+    # one fetch returns the rest of a partition, so each poll fills its
+    # batch in one sweep and the batches cut where kafka_poll_order says,
+    # where MemorySource is made to cut them
     os.environ["HEATMAP_FETCH_MAX_BYTES"] = str(256 << 20)
     try:
-        return _kafka_runs(torch, run_pipeline, snap_kernel, ckpt_root)
+        return _kafka_runs(torch, run_pipeline, snap_kernel, ckpt_root, dev)
     finally:
         del os.environ["HEATMAP_FETCH_MAX_BYTES"]
 
 
-def _kafka_runs(torch, run_pipeline, snap_kernel, ckpt_root):
+def _kafka_runs(torch, run_pipeline, snap_kernel, ckpt_root, dev):
     from heatmap_tpu_torch.kafka import KafkaClient, Record
     from heatmap_tpu_torch.kafka.client import partition_for_key
     from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.sink import JsonlStore, make_store
     from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.sink.mongo import MongoStore
     from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
     from heatmap_tpu_torch.stream.source import KafkaSource, MemorySource
     from heatmap_tpu_torch.testing.mock_kafka import MockKafkaBroker
+    from heatmap_tpu_torch.testing.mock_mongod import MockMongod
 
     name = "mbta_default"
     p = get_pipeline(name)
     batch = p.config.batch_size
+    n_batches = KAFKA_EVENTS // batch
+    t0 = time.monotonic()
     keys, values, events = kafka_events()
     n_bad = sum(1 for e in events if "malformed" in e or e["lat"] > 90)
+    n_valid = len(values) - n_bad
     out = {"phase": "kafka", "records": len(values), "rejects": n_bad,
-           "partitions": 3}
-    with MockKafkaBroker(num_partitions=3) as bootstrap:
+           "partitions": 3, "batches": n_batches,
+           "generate_s": time.monotonic() - t0,
+           "value_bytes": sum(len(v) for v in values)}
+    with MockKafkaBroker(num_partitions=3) as bootstrap, \
+            MockMongod() as mongo_uri:
         over = dict(kafka_bootstrap=bootstrap)
         cfg = dataclasses.replace(p.config, **over)
 
         def source():
             src = p.make_source(cfg)
-            if not isinstance(src, KafkaSource):
-                raise AssertionError(f"{name}: the pipeline fell back to "
+            if not isinstance(src, KafkaSource) or src._dec is None:
+                raise AssertionError(f"{name}: not a native KafkaSource: "
                                      f"{type(src).__name__}")
             return src
 
-        src_run, src_killed = source(), source()   # both at LATEST
+        # every source starts at LATEST, so all are built before producing
+        srcs = {k: source() for k in ("first", "memory", "jsonl", "mongo",
+                                      "killed", "default_fetch")}
         t0 = time.monotonic()
         client = KafkaClient(bootstrap)
         by_part = {0: [], 1: [], 2: []}
-        for i, (k, v) in enumerate(zip(keys, values)):
+        for i, k in enumerate(keys):
             by_part[partition_for_key(k, 3)].append(i)
         for part, idx in by_part.items():
             for j in range(0, len(idx), 4096):
@@ -939,80 +1096,248 @@ def _kafka_runs(torch, run_pipeline, snap_kernel, ckpt_root):
                     for i in idx[j:j + 4096]])
         client.close()
         out["produce_s"] = time.monotonic() - t0
+        order = kafka_poll_order(by_part, batch, n_batches)
+        if sorted(order) != list(range(len(values))):
+            raise AssertionError("kafka_poll_order does not cover the topic")
 
-        snap_kernel.latlng_to_cell_kernel.launches = 0
-        t0 = time.monotonic()
-        rt, store = run_pipeline(name, max_batches=2, device="cuda",
-                                 checkpoint_dir=f"{ckpt_root}/kafka",
-                                 checkpoint_every=1, source=src_run, **over)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        launches = snap_kernel.latlng_to_cell_kernel.launches
-        m = rt.metrics
-        n_valid = len(values) - n_bad
-        grid = rt.cfg.pair_grid(rt.cfg.h3_res, rt.cfg.tile_minutes)
-        check_run(name, m, store._tiles, [grid], launches, 1, n_valid)
-        if m["events_invalid"] != n_bad or m["batches"] != 2:
-            raise AssertionError(f"kafka: {m['batches']} batches, "
-                                 f"{m['events_invalid']} dropped of {n_bad} "
-                                 f"rejects")
-        if m["kafka_fetch_errors"] or m["kafka_offset_resets"]:
-            raise AssertionError(f"kafka: transport errors {m}")
-        kafka_docs = store._tiles
-        out.update(run_stats(m, wall, launches,
-                             torch.cuda.max_memory_allocated()))
-        out["p50_span_ms"] = {k: m["p50_span_ms"][k]
-                              for k in ("poll", "fetch", "decode", "feed",
-                                        "dispatch")}
-        out["fetch_ms"] = rt.span_ms["fetch"]
-        out["decode_ms"] = rt.span_ms["decode"]
-        out["tiles"] = len(kafka_docs)
-        del rt, store
+        # the snap kernel against its plain version on the first Kafka
+        # batch's points (exact; these launches are not counted), and the
+        # native codecs' times on that batch
+        first = srcs["first"].poll(batch)
+        srcs["first"].close()
+        lat, lng = (torch.from_numpy(a).to(dev)
+                    for a in (first.lat_rad, first.lng_rad))
+        share, err = compare_cells(torch, snap_kernel, lat, lng,
+                                   cfg.h3_res)
+        if share != 1.0 or err != 0:
+            raise AssertionError(f"snap kernel vs plain on the first Kafka "
+                                 f"batch: {share} identical, max abs err "
+                                 f"{err}")
+        out["snap_first_kafka_batch"] = {"points": len(first),
+                                         "res": cfg.h3_res,
+                                         "identical": share,
+                                         "max_abs_err": err}
+        del lat, lng
 
-        # the same events through MemorySource, partition by partition as
-        # the wire impl's round-robin sweeps read them (the first batch
-        # holds all of partition 0 and the head of 1)
-        order = [i for part in range(3) for i in by_part[part]]
+        # the same stream into the three stores HEATMAP_STORE selects
+        runs, contents, docs_bytes = {}, {}, {}
+        for kind in ("memory", "jsonl", "mongo"):
+            ckpt = f"{ckpt_root}/kafka-{kind}"
+            # HEATMAP_STORE=<kind> (MONGO_URI at the mock server), as the
+            # entry point builds it
+            store = make_store(dataclasses.replace(
+                cfg, store=kind, mongo_uri=mongo_uri, checkpoint_dir=ckpt))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            snap_kernel.latlng_to_cell_kernel.launches = 0
+            t0 = time.monotonic()
+            rt, store = run_pipeline(name, max_batches=n_batches,
+                                     device="cuda", checkpoint_dir=ckpt,
+                                     checkpoint_every=4,
+                                     source=srcs[kind], store=store, **over)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = snap_kernel.latlng_to_cell_kernel.launches
+            m = rt.metrics
+            grid = rt.cfg.pair_grid(rt.cfg.h3_res, rt.cfg.tile_minutes)
+            if type(store).__name__ != {"memory": "MemoryStore",
+                                        "jsonl": "JsonlStore",
+                                        "mongo": "MongoStore"}[kind]:
+                raise AssertionError(f"kafka {kind}: {type(store)}")
+            tiles, positions = contents[kind] = store_contents(store)
+            check_run(f"{name} {kind}", m, tiles, [grid], launches, 1,
+                      n_valid)
+            check_native_path(kind, m, len(values))
+            if m["events_invalid"] != n_bad or m["batches"] != n_batches:
+                raise AssertionError(f"kafka {kind}: {m['batches']} batches, "
+                                     f"{m['events_invalid']} dropped of "
+                                     f"{n_bad} rejects")
+            if kind == "memory":
+                # one batch's emitted rows, for the encoders' timings
+                tile_body = rt.last_flush[0][0][0][1:]
+            if kind == "mongo":
+                from heatmap_tpu_torch.sink import bson
+
+                docs_bytes[kind] = sum(len(bson.encode(d)) for coll in (
+                    tiles, positions) for d in coll.values())
+            store.close()
+            if kind == "jsonl":
+                path = f"{ckpt}/store.jsonl"
+                docs_bytes[kind] = os.path.getsize(path)
+                again = JsonlStore(ckpt)      # the compacted file reloads
+                if store_contents(again) != (tiles, positions):
+                    raise AssertionError("kafka: the JSONL store reloads "
+                                         "other docs")
+                again.close()
+            runs[kind] = {**kafka_run_stats(
+                m, wall, launches, torch.cuda.max_memory_allocated()),
+                "store": type(store).__name__, "tiles": len(tiles),
+                "positions": len(positions),
+                "docs_bytes": docs_bytes.get(kind)}
+            emit({"phase": "kafka_run", "store": kind, **runs[kind]})
+            del rt, store
+        # the three stores hold the same docs: JSONL's (the Python doc
+        # path's, through JSON) exactly, Mongo's (the C++ encoders',
+        # through BSON) under docs_match's bar
+        tiles, positions = contents["memory"]
+        if contents["jsonl"] != (tiles, positions):
+            raise AssertionError("kafka: the JSONL store's docs differ from "
+                                 "the memory store's")
+        mongo_rel_err = docs_match(contents["mongo"][0], tiles)
+        if contents["mongo"][1] != positions:
+            raise AssertionError("kafka: the Mongo store's positions differ "
+                                 "from the memory store's")
+        newest = newest_positions(events)
+        got = {d["vehicleId"]: (int(d["ts"].timestamp()),
+                                *(float(c) for c in reversed(
+                                    d["loc"]["coordinates"])))
+               for d in positions.values()}
+        if got != newest:
+            raise AssertionError("kafka: positions_latest is not the newest "
+                                 "event of each vehicle")
+
+        # the same events through MemorySource, in the order the source's
+        # sweeps read them
         mrt, mstore = run_pipeline(
             name, device="cuda", checkpoint_dir=f"{ckpt_root}/memory",
-            checkpoint_every=1, source=MemorySource(
-                [events[i] for i in order]), max_batches=2, **over)
-        if mstore._tiles != kafka_docs:
+            checkpoint_every=4, source=MemorySource(
+                [events[i] for i in order]), max_batches=n_batches,
+            store=MemoryStore(), **over)
+        if store_contents(mstore) != (tiles, positions):
             raise AssertionError("kafka: docs differ from the MemorySource "
                                  "run's")
         del mrt, mstore
 
-        # killed after the first commit, resumed from its offsets
+        # killed after the commit at epoch 3 and one batch more (a commit
+        # at a multiple of the 3 partitions: the resumed source's sweep
+        # starts at partition 0, as the uninterrupted 4th poll did), then
+        # resumed from the committed offsets into the same Mongo database
         ckpt = f"{ckpt_root}/kafka-killed"
         killed_cfg = dataclasses.replace(cfg, checkpoint_dir=ckpt)
-        store = MemoryStore()
-        krt = MicroBatchRuntime(killed_cfg, src_killed, store,
-                                checkpoint_every=1)
-        if not krt.step_once():
-            raise AssertionError("kafka: the first batch read nothing")
+        kstore = MongoStore(mongo_uri, "resume")
+        krt = MicroBatchRuntime(killed_cfg, srcs["killed"], kstore,
+                                checkpoint_every=3)
+        while krt.epoch < 4:
+            if not krt.step_once():
+                raise AssertionError("kafka: the killed run read nothing")
         krt._ckpt_join()
+        krt.writer.drain()               # what it handed over had landed
         committed = krt.ckpt.load_meta()["offset"]
         del krt
-        src_killed.close()
+        srcs["killed"].close()
+        kstore.close()
         t0 = time.monotonic()
-        rrt = MicroBatchRuntime(killed_cfg, source(), store,
-                                checkpoint_every=1)
+        rstore = MongoStore(mongo_uri, "resume")
+        rrt = MicroBatchRuntime(killed_cfg, source(), rstore,
+                                checkpoint_every=3)
         seeked = rrt.source.offset()
-        if seeked != {int(k): v for k, v in committed.items()}:
-            raise AssertionError(f"kafka: resumed at {seeked}, committed "
-                                 f"{committed}")
-        rrt.run(max_batches=1)
+        if rrt.epoch != 3 or seeked != {int(k): v
+                                        for k, v in committed.items()}:
+            raise AssertionError(f"kafka: resumed at epoch {rrt.epoch}, "
+                                 f"{seeked}, committed {committed}")
+        rrt.run(max_batches=n_batches - 3)
         recover_s = time.monotonic() - t0
-        if rrt.epoch != 2 or store._tiles != kafka_docs:
+        if rrt.epoch != n_batches or store_contents(rstore) != contents[
+                "mongo"]:
             raise AssertionError("kafka: the resumed run's docs differ from "
                                  "the uninterrupted run's")
+        rstore.close()
         del rrt
+
+        # uncompared: the default 4 MiB fetch (both packages' source.py),
+        # partial batches, until the topic is read
+        src = srcs["default_fetch"]
+        src.fetch_max_bytes = 4 << 20
+        drt = MicroBatchRuntime(dataclasses.replace(
+            cfg, checkpoint_dir=f"{ckpt_root}/kafka-4mib"), src,
+            MemoryStore(), checkpoint_every=4)
+        t0 = time.monotonic()
+        for _ in range(4 * n_batches):
+            if sum(src.offset().values()) >= len(values):
+                break
+            drt.step_once()
+        drt.close()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        m = drt.metrics
+        check_native_path("4 MiB", m, len(values))
+        if m["events_valid"] != n_valid:
+            raise AssertionError(f"kafka 4 MiB: {m['events_valid']} of "
+                                 f"{n_valid} events folded")
+        default_fetch = {"fetch_max_bytes": 4 << 20, "wall_s": wall,
+                         "events_per_s": m["events_valid"] / wall,
+                         "batches": m["batches"],
+                         "p50_batch_ms": m["p50_batch_ms"],
+                         "p50_span_ms": {k: m["p50_span_ms"][k] for k in (
+                             "poll", "fetch", "decode")}}
+        del drt
     torch.cuda.empty_cache()
-    out.update(source="KafkaSource", docs_equal_memory_source=True,
-               committed_offsets=committed, resumed_docs_equal=True,
-               resume_s=recover_s)
+    codecs = native_codec_times(keys, values, order[:batch], first,
+                                tile_body)
+    # each run's full line is printed above (phase kafka_run)
+    out.update(runs={k: {f: r[f] for f in ("store", "events_per_s", "wall_s",
+                                           "p50_batch_ms", "p50_span_ms")}
+                     for k, r in runs.items()},
+               source="KafkaSource", stores_identical=True,
+               mongo_tile_float_max_rel_err=mongo_rel_err,
+               positions_newest=len(newest),
+               docs_equal_memory_source=True, committed_offsets=committed,
+               resumed_docs_equal=True, resume_s=recover_s,
+               snap_launches=runs["memory"]["snap_launches"],
+               default_fetch=default_fetch, native_codecs=codecs)
     emit(out)
     return out
+
+
+def native_codec_times(keys, values, idx, cols, body):
+    """Each native codec's host time for one 2^17 batch (median of 5, on
+    the host clock), beside its plain Python version where one exists:
+    CRC32C over the batch's record batches, kafka_decode_values of them,
+    NativeDecoder.decode of the joined values, enc_tile_ops of a batch's
+    emitted tile rows (``body``) and enc_position_ops of the batch's
+    changed vehicles."""
+    import types
+
+    from heatmap_tpu_torch import native
+    from heatmap_tpu_torch.kafka import records as rec
+    from heatmap_tpu_torch.sink.base import TilePackMeta
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+    from heatmap_tpu_torch.stream.source import _decode_json_values
+
+    def med(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    blob = b"".join(rec.encode_batch(
+        [rec.Record(0, 0, keys[i], values[i]) for i in idx[j:j + 4096]],
+        base_offset=j) for j in range(0, len(idx), 4096))
+    joined = b"\n".join(values[i] for i in idx) + b"\n"
+    dec = native.NativeDecoder()
+    meta = TilePackMeta("bos", "h3r8", 300, 45, 0, True)
+    state = types.SimpleNamespace(_pos_ts=np.full(1024, -(2**62), np.int64),
+                                  _pos_win=None)
+    prows = MicroBatchRuntime._fold_positions(state, cols)
+    tiles, poss = native.NativeTileOps(), native.NativePositionOps()
+    return {
+        "batch_records": len(idx), "record_bytes": len(blob),
+        "tile_rows": int(np.count_nonzero(
+            (body[:, 8] != 0) & (body[:, 3].view(np.int32) > 0))),
+        "position_rows": len(prows.ts_ms),
+        "crc32c_ms": med(lambda: native.crc32c_native(blob)),
+        "crc32c_plain_ms": med(lambda: rec.crc32c_plain(blob), reps=1),
+        "kafka_decode_values_ms": med(
+            lambda: native.kafka_decode_values(blob, 0)),
+        "native_decode_ms": med(lambda: dec.decode(joined, final=True)),
+        "python_decode_ms": med(lambda: _decode_json_values(
+            [values[i] for i in idx], {}, {}), reps=1),
+        "enc_tile_ops_ms": med(lambda: tiles.encode(
+            body, meta.city, meta.grid, meta.window_s, meta.ttl_minutes)),
+        "enc_position_ops_ms": med(lambda: poss.encode(prows)),
+    }
 
 
 def main() -> int:
@@ -1053,11 +1378,11 @@ def main() -> int:
     # each run commits to a directory of its own, removed at the end
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke-ckpt-")
     try:
-        fold, fold_docs = phase_fold(torch, run_pipeline, snap_kernel,
-                                     f"{ckpt_root}/fold")
-        resume = phase_resume(torch, snap_kernel, fold_docs,
+        fold, fold_docs, fold_positions = phase_fold(
+            torch, run_pipeline, snap_kernel, f"{ckpt_root}/fold")
+        resume = phase_resume(torch, snap_kernel, fold_docs, fold_positions,
                               f"{ckpt_root}/resume")
-        del fold_docs
+        del fold_docs, fold_positions
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     phase_determinism(torch)
@@ -1067,7 +1392,7 @@ def main() -> int:
                                             ckpt_root, dev)
         opensky = phase_opensky(torch, run_pipeline, snap_kernel,
                                 f"{ckpt_root}/opensky", dev)
-        kafka = phase_kafka(torch, run_pipeline, snap_kernel, ckpt_root)
+        kafka = phase_kafka(torch, run_pipeline, snap_kernel, ckpt_root, dev)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     by_res = {}

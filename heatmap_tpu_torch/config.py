@@ -2,7 +2,10 @@
 
 A copy of the part of ``heatmap_tpu/config.py`` that the streaming slice
 uses, with the same environment names and defaults, so one environment
-configures both packages the same way.
+configures both packages the same way.  A knob of the reference that turns
+on a subsystem the port lacks (``UNPORTED_KNOBS``) raises
+``NotImplementedError`` in ``load_config`` when it asks for more than the
+reference's default, instead of being silently ignored.
 """
 
 from __future__ import annotations
@@ -30,8 +33,32 @@ def _default_checkpoint_dir() -> str:
     return os.path.join(tempfile.gettempdir(), "heatmap-checkpoint")
 
 
+def _flag_on(v: str) -> bool:
+    """A HEATMAP_* boolean knob as the reference's load_config reads it."""
+    return v not in ("0", "false", "")
+
+
+# knob -> (does this value ask for the subsystem?, the ROADMAP item that
+# ports it); the reference's value when the knob is unset never does
+UNPORTED_KNOBS = {
+    "HEATMAP_SHARDS": (lambda v: int(v) > 1, "A7, the process fleet"),
+    "HEATMAP_SHARD_INDEX": (lambda v: int(v) != 0, "A7, the process fleet"),
+    "HEATMAP_REDUCERS": (
+        lambda v: bool({s.strip() for s in v.split(",") if s.strip()}
+                       - {"count"}), "A5, inference"),
+    "HEATMAP_GOVERN": (_flag_on, "A7, the governor"),
+    "HEATMAP_AUDIT": (_flag_on, "A6, observability"),
+    "HEATMAP_QUALITY": (_flag_on, "A5, inference"),
+    "HEATMAP_REPL_DIR": (bool, "A4, the serve and query tier"),
+    "HEATMAP_HIST_DIR": (bool, "A4, the serve and query tier"),
+    "HEATMAP_TSDB": (_flag_on, "A6, observability"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
+    mongo_uri: str = "mongodb://127.0.0.1:27017"
+    mongo_db: str = "mobility"
     kafka_bootstrap: str = "localhost:9092"
     kafka_topic: str = "mobility.positions.v1"
     city: str = "ath"
@@ -69,6 +96,8 @@ class Config:
     grow_margin: str = "worst"
     # batches polled, padded and copied to the device ahead of the fold
     prefetch_batches: int = 1
+    trigger_ms: int = 0                # 0 = as fast as possible (ref default)
+    store: str = "auto"                # "auto" | "memory" | "mongo" | "jsonl"
 
     def pair_grid(self, res: int, wmin: int) -> str:
         """Sink grid label for a (res, window) pair: "h3r{res}" for the
@@ -80,7 +109,14 @@ class Config:
 def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
     """Build a Config from env vars (same names as the reference) + overrides."""
     e = dict(os.environ if env is None else env)
+    for knob, (on, item) in UNPORTED_KNOBS.items():
+        if knob in e and on(e[knob]):
+            raise NotImplementedError(
+                f"{knob}={e[knob]!r}: not ported to heatmap_tpu_torch yet "
+                f"(ROADMAP {item}); unset it")
     cfg = Config(
+        mongo_uri=e.get("MONGO_URI", Config.mongo_uri),
+        mongo_db=e.get("MONGO_DB", Config.mongo_db),
         kafka_bootstrap=e.get("KAFKA_BOOTSTRAP", Config.kafka_bootstrap),
         kafka_topic=e.get("KAFKA_TOPIC", Config.kafka_topic),
         city=e.get("CITY", Config.city),
@@ -102,6 +138,8 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         grow_margin=e.get("HEATMAP_GROW_MARGIN", Config.grow_margin),
         prefetch_batches=_int(e, "HEATMAP_PREFETCH_BATCHES",
                               Config.prefetch_batches),
+        trigger_ms=_int(e, "TRIGGER_MS", Config.trigger_ms),
+        store=e.get("HEATMAP_STORE", Config.store),
     )
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -124,6 +162,9 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
     if cfg.emit_flush_k < 1:
         raise ValueError(
             f"HEATMAP_EMIT_FLUSH_K must be >= 1, got {cfg.emit_flush_k}")
+    if cfg.store not in ("auto", "memory", "jsonl", "mongo"):
+        raise ValueError(f"HEATMAP_STORE must be auto|memory|jsonl|mongo, "
+                         f"got {cfg.store!r}")
     if not (0 <= cfg.prefetch_batches <= 32):
         raise ValueError(
             f"HEATMAP_PREFETCH_BATCHES must be in 0..32, "

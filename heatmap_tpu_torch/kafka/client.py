@@ -1,7 +1,8 @@
 """Kafka broker client: metadata, produce, fetch, list_offsets.
 
-A copy of ``heatmap_tpu/kafka/client.py`` with its Python paths only
-(``fetch_values`` decodes with ``records.decode_batches_tolerant``).
+A copy of ``heatmap_tpu/kafka/client.py``: ``fetch_values`` frames the
+values with the native codec (``native.kafka_decode_values``) and takes the
+Python record decoder only for a blob that codec refuses.
 
 ``BrokerClient`` is one TCP connection to one broker.  ``KafkaClient``
 adds cluster awareness: it bootstraps metadata, routes produce/fetch to
@@ -432,12 +433,31 @@ class KafkaClient:
     def fetch_values(self, topic: str, partition: int, offset: int,
                      max_bytes: int = 1 << 20, max_wait_ms: int = 100,
                      framing: str = "newline"):
-        """(high_watermark, FetchResult): the reference's fallback branch,
-        the Python decoder (its native batch decoder is not ported).
-        ``framing`` is accepted for the reference's signature; the records
-        come back whole, so it changes nothing here."""
-        fr = self.fetch(topic, partition, offset, max_bytes, max_wait_ms)
-        return fr.high_watermark, fr
+        """Fetch + decode straight to a newline-joined values blob via the
+        C++ batch decoder (native.kafka_decode_values), the consumer hot
+        path, skipping per-record Python entirely.  Returns
+        (high_watermark, KafkaValues) or, when the native framing refuses
+        this blob (malformed varints, newline-bearing values),
+        (high_watermark, FetchResult) from the Python decoder, as the
+        reference does.  Only ``framing="newline"`` (JSON values) is
+        ported."""
+        from heatmap_tpu_torch.native import kafka_decode_values
+
+        if framing != "newline":
+            raise NotImplementedError(
+                f"framing={framing!r}: only newline framing (JSON values) "
+                f"is ported to heatmap_tpu_torch")
+        hw, blob = self._with_retry(
+            topic, partition,
+            lambda c: c.fetch(topic, partition, offset, max_bytes,
+                              max_wait_ms))
+        kv = kafka_decode_values(blob, offset)
+        if kv is not None:
+            kv.next_offset = max(kv.next_offset, offset)
+            return hw, kv
+        records, next_off, skipped = rec.decode_batches_tolerant(blob, offset)
+        records = [r for r in records if r.offset >= offset]
+        return hw, FetchResult(hw, records, max(next_off, offset), skipped)
 
     def list_offsets(self, topic: str, timestamp: int = LATEST) -> dict[int, int]:
         parts = self.partitions(topic)

@@ -3,7 +3,7 @@ port's streaming runtime (synthetic source -> device fold -> memory
 store), one JSON line per config.
 
 ``python -m heatmap_tpu_torch.models.bench_pipelines [--events N]
-[--batch B] [--pipelines NAME ...] [--device cuda|cpu]``
+[--batch B] [--pipelines NAME ...] [--device cuda|cpu] [--no-positions]``
 
 The port's copy of ``heatmap_tpu/models/bench_pipelines.py``: each
 pipeline's (res, window) topology, histogram bins and range, and slab
@@ -11,7 +11,10 @@ size (at least 2^16 rows) over a forced synthetic source (20,000
 vehicles, one batch of event time a second), so the sweep needs no
 broker.  Each run commits to a fresh checkpoint directory under the temp
 directory, removed afterwards.  Runs on the CUDA device unless
-``--device cpu`` is given.
+``--device cpu`` is given.  ``--no-positions`` turns the runtime's
+positions fold off (``positions_enabled=False``, as the reference's
+``tools/e2e_rate.py --no-positions`` does), to read what the positions
+fold and its writes cost the fold.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import time
 
 
 def bench_one(name: str, n_events: int, batch: int,
-              device: str = "cuda") -> dict:
+              device: str = "cuda", positions: bool = True) -> dict:
     from heatmap_tpu_torch.config import load_config
     from heatmap_tpu_torch.models.pipelines import get_pipeline
     from heatmap_tpu_torch.sink.memory import MemoryStore
@@ -50,7 +53,8 @@ def bench_one(name: str, n_events: int, batch: int,
                               t0=int(time.time()) - 300,
                               events_per_second=batch)
         rt = MicroBatchRuntime(cfg, src, MemoryStore(), device=device,
-                               checkpoint_every=0)
+                               checkpoint_every=0,
+                               positions_enabled=positions)
         # warmup outside the timed region: one batch (its events are
         # excluded from the throughput numerator below)
         rt.step_once()
@@ -71,6 +75,10 @@ def bench_one(name: str, n_events: int, batch: int,
         "events_per_sec": (n_timed / wall if wall > 0 and n_timed
                            else None),
         "batch_p50_ms": m["p50_batch_ms"],
+        "p50_span_ms": {k: m["p50_span_ms"][k] for k in (
+            "poll", "dispatch", "positions", "prefetch")},
+        "positions_enabled": positions,
+        "positions_emitted": m["positions_emitted"],
         "tiles_emitted": m["tiles_emitted"],
         "capacity": m["capacity"],
         "state_grown": m["state_grown"],
@@ -85,11 +93,14 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--batch", type=int, default=1 << 14)
     ap.add_argument("--pipelines", nargs="*", default=sorted(PIPELINES))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--no-positions", action="store_true",
+                    help="run without the positions fold")
     args = ap.parse_args(argv)
 
     out = []
     for name in args.pipelines:
-        r = bench_one(name, args.events, args.batch, args.device)
+        r = bench_one(name, args.events, args.batch, args.device,
+                      positions=not args.no_positions)
         print(json.dumps(r), flush=True)
         out.append(r)
     return out

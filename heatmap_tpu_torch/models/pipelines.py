@@ -14,6 +14,7 @@ import logging
 import os
 from typing import Callable
 
+from heatmap_tpu_torch._build import KernelBuildError
 from heatmap_tpu_torch.config import Config, load_config
 from heatmap_tpu_torch.stream.source import (KafkaSource, Source,
                                              SyntheticSource)
@@ -36,14 +37,15 @@ def _kafka_or_synthetic(cfg: Config) -> Source:
 
     ``HEATMAP_FEEDER=proc`` (the reference's shared-memory feeder process)
     is not ported and raises, as do the unported consumer impls and event
-    formats (``KafkaSource``): none of them falls back."""
+    formats (``KafkaSource``) and a native codec that cannot be built:
+    none of them falls back."""
     if os.environ.get("HEATMAP_FEEDER") == "proc":
         raise NotImplementedError(
             "HEATMAP_FEEDER=proc: the shared-memory feeder process is not "
             "ported to heatmap_tpu_torch; unset it to consume in-process")
     try:
         return KafkaSource(cfg.kafka_bootstrap, cfg.kafka_topic)
-    except NotImplementedError:
+    except (NotImplementedError, KernelBuildError):
         raise
     except (ImportError, ConnectionError, OSError, RuntimeError) as e:
         # RuntimeError covers KafkaError (unknown topic / leaderless)

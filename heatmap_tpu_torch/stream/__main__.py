@@ -1,13 +1,18 @@
 """Streaming job: ``python -m heatmap_tpu_torch.stream [pipeline]``.
 
-Consumes the pipeline's source, folds it on the device and upserts the
-tile docs into an in-memory store, committing checkpoints to the
+Consumes the pipeline's source (default ``mbta_default``, as the
+reference's entry point), folds it on the device and, through the runtime's
+writer thread, upserts the tile docs and the ``positions_latest`` docs into
+the store that ``HEATMAP_STORE`` selects: ``memory``, ``jsonl``
+(``<CHECKPOINT>/store.jsonl``), ``mongo`` (``MONGO_URI``, ``MONGO_DB``,
+over pymongo or the stdlib wire client), or ``auto`` (Mongo when a server
+answers, else memory; the default).  It commits checkpoints to the
 directory that ``CHECKPOINT`` names (default ``heatmap-checkpoint`` under
 the temp directory, ``TMPDIR``, read with the rest of the environment when
-the pipelines are built) and resuming from its latest commit; then prints
-the run's metrics (the source's transport counters among them) as one JSON
-line.  Every run that must not resume another's commits needs its own
-``CHECKPOINT``.
+the pipelines are built) and resumes from its latest commit; then prints
+the run's metrics (the source's transport counters and the writer's among
+them) as one JSON line.  Every run that must not resume another's commits
+needs its own ``CHECKPOINT``.
 
 The live pipelines (``mbta_default``, ``opensky_global``, ``hex_pyramid``,
 ``multi_window``) read the Kafka topic ``KAFKA_TOPIC`` at
@@ -29,13 +34,15 @@ from heatmap_tpu_torch.models.pipelines import PIPELINES, get_pipeline
 
 def run_pipeline(name: str, max_batches: int | None = None,
                  device: str = "cuda", checkpoint_dir: str | None = None,
-                 checkpoint_every: int = 20, source=None, **overrides):
-    """Run pipeline ``name`` into a fresh MemoryStore; returns
-    (runtime, store).  ``checkpoint_dir`` and ``overrides`` (Config
-    fields, e.g. ``kafka_bootstrap``) replace the pipeline's settings
-    (which came from the environment when the pipelines were built);
-    ``source`` replaces the pipeline's own source."""
-    from heatmap_tpu_torch.sink.memory import MemoryStore
+                 checkpoint_every: int = 20, source=None, store=None,
+                 **overrides):
+    """Run pipeline ``name``; returns (runtime, store).  ``checkpoint_dir``
+    and ``overrides`` (Config fields, e.g. ``kafka_bootstrap``, ``store``)
+    replace the pipeline's settings (which came from the environment when
+    the pipelines were built); ``source`` replaces the pipeline's own
+    source, and ``store`` the one ``make_store`` would build from the
+    config.  The caller closes the store."""
+    from heatmap_tpu_torch.sink import make_store
     from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
 
     p = get_pipeline(name)
@@ -44,7 +51,8 @@ def run_pipeline(name: str, max_batches: int | None = None,
         overrides["checkpoint_dir"] = checkpoint_dir
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    store = MemoryStore()
+    if store is None:
+        store = make_store(cfg)
     rt = MicroBatchRuntime(cfg, source if source is not None
                            else p.make_source(cfg), store, device=device,
                            checkpoint_every=checkpoint_every)
@@ -54,17 +62,28 @@ def run_pipeline(name: str, max_batches: int | None = None,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("pipeline", nargs="?", default="synthetic_backfill",
+    ap.add_argument("pipeline", nargs="?", default="mbta_default",
                     choices=sorted(PIPELINES))
     ap.add_argument("--max-batches", type=int, default=None,
                     help="stop after this many folded batches (bounds the "
                          "live pipelines' unbounded sources)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    rt, store = run_pipeline(args.pipeline, args.max_batches, args.device)
-    out = {"pipeline": args.pipeline, "device": str(rt.device),
-           "source": type(rt.source).__name__,
-           **rt.metrics, "tiles": store.n_tiles}
+    from heatmap_tpu_torch.sink import make_store
+
+    store = make_store(get_pipeline(args.pipeline).config)
+    try:
+        rt, _ = run_pipeline(args.pipeline, args.max_batches, args.device,
+                             store=store)
+        out = {"pipeline": args.pipeline, "device": str(rt.device),
+               "source": type(rt.source).__name__,
+               "store": type(store).__name__, **rt.metrics,
+               # docs held, where the store keeps them in this process
+               # (memory, jsonl); the writer's counters count every store
+               "tiles": getattr(store, "n_tiles", None),
+               "positions": getattr(store, "n_positions", None)}
+    finally:
+        store.close()
     print(json.dumps(out))
     return out
 

@@ -1,5 +1,6 @@
 """Micro-batch streaming runtime: source -> device fold -> store, with
-checkpoints, slab growth and a prefetched feed.
+checkpoints, slab growth, a prefetched feed, the positions fold and the
+sink writer thread.
 
 The counterpart of the single-device path of
 ``heatmap_tpu/stream/runtime.py``:
@@ -10,10 +11,21 @@ The counterpart of the single-device path of
   of the fold: ``prefetch_batches``) -> fused fold
   of every (res, window) pair (engine.multi) -> the packed emits parked in
   an ``EmitRing`` on the device -> one pull of every parked batch (a live
-  prefix of each on CUDA) -> tile docs into the store -> every
+  prefix of each on CUDA) -> the packed tile rows handed to the
+  ``AsyncWriter`` thread, which upserts them into the store -> every
   ``checkpoint_every`` batches a checkpoint: the ring flushed, a device
-  copy of each slab taken on the step thread, the copy to the host and the
-  commit to disk on a background thread.
+  copy of each slab taken on the step thread, then on a background thread
+  the writer drained (offsets never move past a write that has not
+  landed), the copy to the host and the commit to disk.
+
+At each dispatch the positions fold (``_fold_positions``, numpy on the
+host, as in the reference) picks the newest event of each vehicle in the
+batch, keeps it only if it is newer than the last one emitted for that
+vehicle (``_pos_ts``, in memory only, as in the reference: after a resume
+the stores' own newer-only guard keeps ``positions_latest`` monotonic),
+and hands the changed vehicles' rows to the writer.  A write that fails
+past the writer's retries poisons it: nothing flushes or commits again,
+and the last good commit's tail replays on resume.
 
 The ring is flushed when it holds ``emit_flush_k`` batches, when the
 watermark cutoff crosses a boundary of the smallest window (so closing
@@ -34,9 +46,8 @@ x 16).  Overflow past the ceiling is counted and logged (``on_overflow=
 "error"``) or stops the run without a commit (``"fail"``).  A new runtime
 resumes from the latest commit in ``checkpoint_dir`` (``_maybe_resume``):
 the offset, the watermark and each pair's slab, grown to a larger
-snapshot or padded to a larger configuration.  Positions, the writer
-thread, the mesh and the observability stack of the reference runtime are
-not ported yet.
+snapshot or padded to a larger configuration.  The mesh and the
+observability stack of the reference runtime are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,7 +67,8 @@ from heatmap_tpu_torch.engine import step
 from heatmap_tpu_torch.engine.multi import MultiAggregator, stats_from_packed
 from heatmap_tpu_torch.engine.state import TileState, to_host
 from heatmap_tpu_torch.engine.step import FUTURE_WINDOWS, I32_MIN, EmitRing
-from heatmap_tpu_torch.sink.base import Store, TilePackMeta
+from heatmap_tpu_torch.sink.base import PositionRows, Store, TilePackMeta
+from heatmap_tpu_torch.sink.writer import AsyncWriter
 from heatmap_tpu_torch.stream.checkpoint import CheckpointManager
 from heatmap_tpu_torch.stream.events import EventColumns, parse_events
 from heatmap_tpu_torch.stream.source import Source
@@ -76,7 +88,8 @@ class _FeedBatch(NamedTuple):
     committed offset only when the batch is dispatched, so a checkpoint
     never covers a batch that was polled ahead but not folded."""
 
-    ts_s: np.ndarray     # the batch's event times (host watermark advance)
+    cols: EventColumns   # the host columns: the watermark advance and the
+                         # positions fold read them
     n: int               # live rows
     feed: dict           # lat/lng/speed/ts/valid, padded, on the device
     host: dict           # the pinned host buffers the copies read from
@@ -109,12 +122,13 @@ def _dir_bytes(path: str) -> int:
 class MicroBatchRuntime:
     def __init__(self, cfg: Config, source: Source, store: Store,
                  device: str | torch.device = "cuda",
-                 checkpoint_every: int = 20):
+                 checkpoint_every: int = 20, positions_enabled: bool = True):
         self.cfg = cfg
         self.source = source
         self.store = store
         self.device = resolve_device(device)
         self.checkpoint_every = checkpoint_every
+        self.positions_enabled = positions_enabled
         self.pairs = list(dict.fromkeys(
             (res, wmin * 60) for res in cfg.resolutions
             for wmin in cfg.windows_minutes))
@@ -175,9 +189,6 @@ class MicroBatchRuntime:
         self._ckpt_stream = torch.cuda.Stream(self.device) if cuda else None
         # overflow policy and growth bookkeeping
         self._fatal = False         # a fail-mode overflow: no exit commit
-        # a flush whose batches did not all reach the sink: the state and
-        # the dispatched offsets cover them, so nothing may commit again
-        self._poisoned = False
         self._overflow_logged_at = -float("inf")
         self._n_active_peak = 0     # max live groups (any pair)
         self._prev_active: dict = {}  # last n_active per pair
@@ -199,7 +210,7 @@ class MicroBatchRuntime:
         self.commits: list[dict] = []
         self.counters = {"batches": 0, "events_polled": 0, "events_valid": 0,
                          "events_late": 0, "events_invalid": 0,
-                         "tiles_emitted": 0,
+                         "tiles_emitted": 0, "positions_emitted": 0,
                          "state_overflow": 0, "state_grown": 0,
                          "checkpoints": 0}
         # emit pulls: flushes in all and by trigger, batches and bytes
@@ -211,12 +222,14 @@ class MicroBatchRuntime:
         # per-batch spans (ms) on the host clock: poll and feed (pad + H2D
         # enqueue) of the batch dispatched, whichever step paid them; pull
         # and sink (a flush of the parked batches before this batch's
-        # fold, device wait + D2H then the store; 0 when the batch flushes
-        # nothing), dispatch (fold enqueue, the predicate wait excluded),
-        # predicate (the host's wait on the fold's tier predicate read,
-        # engine.step._read_flags), prefetch (the next batch's poll and
-        # feed, after this dispatch), checkpoint (the flush before it and
-        # the capture on this thread; 0 on most batches); fetch and decode
+        # fold, device wait + D2H, then the stats and the hand-off to the
+        # writer thread; 0 when the batch flushes nothing), dispatch (fold
+        # enqueue, the predicate wait excluded), predicate (the host's wait
+        # on the fold's tier predicate read, engine.step._read_flags),
+        # positions (the positions fold and its hand-off to the writer),
+        # prefetch (the next batch's poll and feed, after this dispatch),
+        # checkpoint (the flush before it and the capture on this thread;
+        # 0 on most batches); fetch and decode
         # (inside the poll, from a source that reports them: a Kafka
         # source's broker round trips and value decode); and, when
         # time_device_fold is set on a CUDA run, the fold's device time
@@ -225,8 +238,8 @@ class MicroBatchRuntime:
         self.time_device_fold = False
         self.span_ms: dict[str, list[float]] = {
             k: [] for k in ("poll", "feed", "pull", "sink", "dispatch",
-                            "predicate", "prefetch", "checkpoint",
-                            "fetch", "decode", "device_fold")}
+                            "predicate", "positions", "prefetch",
+                            "checkpoint", "fetch", "decode", "device_fold")}
         # the last flush's batches: [([host matrix per pair], epoch)]
         self.last_flush: list = []
         self._fold_events: list = []  # CUDA event pairs not yet read
@@ -236,10 +249,16 @@ class MicroBatchRuntime:
         # provider/vehicle intern maps for sources that poll event dicts
         self._intern_p: dict = {}
         self._intern_v: dict = {}
+        # per-vehicle-intern-id last emitted ts (monotonic guard), grown on
+        # demand; -2^62 = "never seen", below any valid epoch
+        self._pos_ts = np.full(1024, -(2**62), np.int64)
+        self._pos_win: np.ndarray | None = None  # the fold's scatter buffer
         self._maybe_resume()
         # offsets as of the last DISPATCHED batch: checkpoints commit
         # these, so a batch polled but not dispatched always replays
         self._offsets_dispatched = self.source.offset()
+        # the sink thread: tiles at each flush, positions at each dispatch
+        self.writer = AsyncWriter(store)
 
     # ------------------------------------------------------------------
     def _maybe_resume(self) -> None:
@@ -326,6 +345,10 @@ class MicroBatchRuntime:
         def commit():
             t1 = time.monotonic()
             try:
+                # writes queued before the capture must be durable before
+                # the offsets move; later writes draining too is harmless
+                # (idempotent upserts)
+                self.writer.drain()
                 if ready is not None:
                     with torch.cuda.stream(self._ckpt_stream):
                         self._ckpt_stream.wait_event(ready)
@@ -368,13 +391,14 @@ class MicroBatchRuntime:
 
     @property
     def metrics(self) -> dict:
-        """Counters (the source's transport counters merged in), emit
-        pulls, slab capacity, commits, and the median batch wall time and
-        spans (ms)."""
+        """Counters (the source's transport counters and the writer's
+        merged in), emit pulls, slab capacity, commits, and the median
+        batch wall time and spans (ms)."""
         self._read_fold_events(wait=True)
         p50 = lambda xs: float(np.median(xs)) if xs else None
         out = dict(self.counters)
         out.update(self.source.counters)
+        out.update(self.writer.counters)
         out["pulls"] = dict(self.pulls)
         out["capacity"] = self.multi.capacity_per_shard
         out["commits"] = [dict(c) for c in self.commits]
@@ -441,7 +465,7 @@ class MicroBatchRuntime:
                         for k, v in host.items()}
                 ready = torch.cuda.Event()
                 ready.record()
-        return _FeedBatch(ts_s=cols.ts_s, n=n, feed=feed, host=host,
+        return _FeedBatch(cols=cols, n=n, feed=feed, host=host,
                           ready=ready, offset=offset,
                           spans={**src_spans, "poll": t1 - t0,
                                  "feed": time.monotonic() - t1})
@@ -465,6 +489,52 @@ class MicroBatchRuntime:
             if keep.any():
                 best = max(best, int(cand[keep].max()))
         return best
+
+    def _fold_positions(self, cols: EventColumns) -> PositionRows | None:
+        """Latest position per vehicle, monotonic in ts: the newest row of
+        each vehicle in the batch, kept if newer than the last one emitted
+        for it; columnar rows for the changed vehicles (None when none).
+        The reference's ``_fold_positions``: a scatter-max of the packed
+        key ts * 2^shift + row index (the row index breaks equal
+        timestamps toward the later row; arithmetic, not bitwise, so
+        pre-1970 negative ts order correctly) instead of a sort."""
+        if not len(cols):
+            return None
+        vid = cols.vehicle_id
+        n = len(vid)
+        shift = max(20, int(n - 1).bit_length())
+        key = cols.ts_s.astype(np.int64) * (1 << shift) + np.arange(n)
+        # grow the persistent per-vehicle last-ts table to cover new ids
+        need = int(vid.max()) + 1
+        if need > len(self._pos_ts):
+            grown = np.full(max(need, 2 * len(self._pos_ts)), -(2**62),
+                            np.int64)
+            grown[:len(self._pos_ts)] = self._pos_ts
+            self._pos_ts = grown
+        # persistent scatter buffer, reset only at this batch's ids so the
+        # fold stays O(batch) however many vehicles are known
+        if self._pos_win is None or len(self._pos_win) < len(self._pos_ts):
+            self._pos_win = np.empty(len(self._pos_ts), np.int64)
+        self._pos_win[vid] = -(2**62)     # below any key, negatives too
+        np.maximum.at(self._pos_win, vid, key)
+        # row i wins iff it holds its vehicle's max key (one winner per
+        # vehicle present in the batch)
+        rows = np.nonzero(self._pos_win[vid] == key)[0]
+        newer = cols.ts_s[rows].astype(np.int64) > self._pos_ts[vid[rows]]
+        rows = rows[newer]
+        if rows.size == 0:
+            return None
+        self._pos_ts[vid[rows]] = cols.ts_s[rows]
+        providers, vehicles = cols.providers, cols.vehicles
+        return PositionRows(
+            lat=cols.lat_deg[rows],
+            lon=cols.lng_deg[rows],
+            ts_ms=cols.ts_s[rows].astype(np.int64) * 1000,
+            providers=[providers[int(p)] if int(p) < len(providers) else "?"
+                       for p in cols.provider_id[rows]],
+            vehicles=[vehicles[int(v)] if int(v) < len(vehicles) else str(v)
+                      for v in vid[rows]],
+        )
 
     def _wm_flush_due(self) -> bool:
         """Watermark pressure: the cutoff crossed a boundary of the
@@ -524,31 +594,29 @@ class MicroBatchRuntime:
         """Pull and account every batch parked in the emit ring, in order:
         one pull for up to K batches.  ``reason`` names the trigger (full,
         watermark, grow, checkpoint, idle, close).  Returns the seconds
-        spent pulling and sinking."""
-        if self._poisoned:
-            raise RuntimeError("an earlier flush lost parked batches before "
-                               "the sink; restart from the last checkpoint")
+        spent pulling and handing the rows to the writer."""
+        if self.writer.poisoned:
+            # the writer dropped a write of an earlier flush, whose batches
+            # the state and the dispatched offsets cover: nothing may flush
+            # or commit again
+            raise RuntimeError(
+                "an earlier flush lost parked batches before the sink; "
+                "restart from the last checkpoint") from self.writer._exc
         if not len(self._ring):
             return 0.0, 0.0
         t0 = time.monotonic()
-        try:
-            flushed = self._ring.flush_stacked(self._prefix_pull)
-            t1 = time.monotonic()
-            self.last_flush = flushed
-            self.pulls["flushes"] += 1
-            self.pulls[reason] += 1
-            self.pulls["batches"] += len(flushed)
-            batch_max = I32_MIN
-            for bufs, epoch in flushed:
-                for idx, pair in enumerate(self.pairs):
-                    batch_max = max(batch_max,
-                                    self._account(pair, bufs[idx], epoch))
-                self.pulls["bytes"] += sum(b.nbytes for b in bufs)
-        except BaseException:
-            # the ring is empty now, but the sink missed some of its
-            # batches: a later commit would record offsets past them
-            self._poisoned = True
-            raise
+        flushed = self._ring.flush_stacked(self._prefix_pull)
+        t1 = time.monotonic()
+        self.last_flush = flushed
+        self.pulls["flushes"] += 1
+        self.pulls[reason] += 1
+        self.pulls["batches"] += len(flushed)
+        batch_max = I32_MIN
+        for bufs, epoch in flushed:
+            for idx, pair in enumerate(self.pairs):
+                batch_max = max(batch_max,
+                                self._account(pair, bufs[idx], epoch))
+            self.pulls["bytes"] += sum(b.nbytes for b in bufs)
         # the device's own batch_max_ts heals any undercount of the host's
         self.max_event_ts = max(self.max_event_ts, batch_max)
         self._last_flush_cutoff = self._cutoff()
@@ -597,7 +665,7 @@ class MicroBatchRuntime:
         self._offsets_dispatched = entry.offset
         t3 = time.monotonic()
         # host-side watermark advance: the next batch's cutoff, whatever K
-        bm = self._host_batch_max_ts(entry.ts_s)
+        bm = self._host_batch_max_ts(entry.cols.ts_s)
         if bm > self.max_event_ts:
             if (self.max_event_ts == I32_MIN
                     and self._last_flush_cutoff == I32_MIN):
@@ -607,6 +675,12 @@ class MicroBatchRuntime:
                 self._last_flush_cutoff = (
                     bm - self.cfg.watermark_minutes * 60)
             self.max_event_ts = bm
+        t_pos = time.monotonic()
+        if self.positions_enabled:
+            prows = self._fold_positions(entry.cols)
+            if prows is not None:
+                self.writer.submit_positions_packed(prows)
+                self.counters["positions_emitted"] += len(prows.ts_ms)
         self.epoch += 1
         self.counters["batches"] += 1
         self.counters["events_polled"] += entry.n
@@ -631,6 +705,7 @@ class MicroBatchRuntime:
                          ("pull", pull_s), ("sink", sink_s),
                          ("dispatch", t3 - t2 - predicate_s),
                          ("predicate", predicate_s),
+                         ("positions", t4 - t_pos),
                          ("prefetch", t5 - t4), ("checkpoint", t6 - t5)):
             self.span_ms[name].append(dt * 1e3)
         if events is not None:
@@ -648,7 +723,7 @@ class MicroBatchRuntime:
         n_docs = int(np.count_nonzero(
             (body[:, 8] != 0) & (body[:, 3].view(np.int32) > 0)))
         if n_docs:
-            self.store.upsert_tiles_packed(body, self._pack_meta[pair])
+            self.writer.submit_tiles_packed(body, self._pack_meta[pair])
         self.counters["tiles_emitted"] += n_docs
         if pair == self._primary:
             self.counters["events_valid"] += stats.n_valid
@@ -693,36 +768,48 @@ class MicroBatchRuntime:
 
     def close(self) -> None:
         """Fold the prefetched batches, flush the ring, commit the exit
-        checkpoint and wait for it, then close the source.  After a
-        fail-mode overflow or a flush that lost batches before the sink,
-        nothing is folded or committed: the last good commit stays, and
-        its tail replays."""
+        checkpoint and wait for it, then close the source and the writer
+        (which drains it).  After a fail-mode overflow or a poisoned
+        writer, nothing is folded or committed: the last good commit
+        stays, and its tail replays; a poisoned writer's close raises."""
         self._closing = True
-        failed = lambda: self._fatal or self._poisoned
+        failed = lambda: self._fatal or self.writer.poisoned
         try:
             try:
                 while self._prefetched and not failed():
                     self.step_once()
-                if not self._poisoned:
+                if not self.writer.poisoned:
                     self.flush_pending("close")
             finally:
                 if not failed():
                     self._checkpoint()
                 self._ckpt_join(raise_errors=not failed())
         finally:
-            self.source.close()
+            try:
+                self.source.close()
+            finally:
+                self.writer.close()
 
     def run(self, max_batches: int | None = None) -> None:
         """Drive the loop until the source is exhausted (or max_batches),
-        then close."""
+        then close.  With ``trigger_ms``, a batch that progressed is
+        followed by a sleep for what is left of its trigger interval, as
+        in the reference."""
+        trigger_s = self.cfg.trigger_ms / 1e3
         n = 0
         try:
             while max_batches is None or n < max_batches:
+                t0 = time.monotonic()
                 if self.step_once():
                     n += 1
                 elif self.source.exhausted:
                     break
                 else:
                     time.sleep(0.05)
+                    continue
+                if trigger_s:
+                    dt_left = trigger_s - (time.monotonic() - t0)
+                    if dt_left > 0:
+                        time.sleep(dt_left)
         finally:
             self.close()

@@ -7,11 +7,14 @@ events past the current position (``EventColumns``, or a list of event
 dicts that the runtime parses), ``offset``/``seek`` expose a serializable
 position.  ``SyntheticSource`` generates the same bytes as the reference's
 for the same arguments; ``KafkaSource`` polls a topic to the same columns,
-counters and offsets as the reference's wire impl with its Python decoder.
+counters and offsets as the reference's wire impl: with the native codecs
+(record framing and the JSON-lines decoder, ``heatmap_tpu_torch.native``)
+by default, or with the Python codecs, their plain versions, when the
+caller passes ``decoder="python"``.
 
 Not ported (they raise ``NotImplementedError`` where the reference would
 take them): the confluent and kafka-python consumers, and the binary and
-columnar event formats with the native decoders.
+columnar event formats.
 """
 
 from __future__ import annotations
@@ -214,8 +217,16 @@ class SyntheticSource(Source):
 class KafkaSource(Source):
     """Kafka consumer source (the reference's ingress contract) over the
     port's own wire client, ``heatmap_tpu_torch.kafka``: the reference's
-    wire impl with its Python decoder (per-record ``json.loads``, then
-    ``parse_events``).
+    wire impl.  ``decoder="native"`` (the default, the reference's path
+    whenever g++ can build its codecs): each fetch's records blob is framed
+    to newline-joined values in C++ and the values decode in C++ to
+    columns, with the decoder's own persistent intern tables; a blob that
+    the native framing refuses (malformed varints, a value holding a
+    newline) takes the Python record decoder and ``json.loads``, as the
+    reference's does, and counts in ``kafka_native_fallback_blobs``.
+    ``decoder="python"``: the plain version, per-record ``json.loads`` then
+    ``parse_events``.  ``values_decoded_native`` and
+    ``values_decoded_python`` count the values each path decoded.
 
     Starts at LATEST offsets like the reference (startingOffsets=latest);
     ``seek`` with a checkpointed {partition: offset} map overrides that on
@@ -235,7 +246,7 @@ class KafkaSource(Source):
     # first sweep always runs); see _fetch_values
     sweep_budget_s = 0.2
 
-    def __init__(self, bootstrap: str, topic: str):
+    def __init__(self, bootstrap: str, topic: str, decoder: str = "native"):
         impl = os.environ.get("HEATMAP_KAFKA_IMPL", "auto")
         if impl in ("confluent", "kafka-python"):
             raise NotImplementedError(
@@ -248,10 +259,17 @@ class KafkaSource(Source):
         if fmt != "json":
             raise NotImplementedError(
                 f"HEATMAP_EVENT_FORMAT={fmt!r}: only 'json' is ported to "
-                f"heatmap_tpu_torch (binary and columnar values need the "
-                f"reference's native decoders)")
+                f"heatmap_tpu_torch (binary and columnar values are not "
+                f"ported)")
+        if decoder not in ("native", "python"):
+            raise ValueError(f"decoder must be native|python, got "
+                             f"{decoder!r}")
         from heatmap_tpu_torch.kafka import KafkaClient
+        from heatmap_tpu_torch.native import NativeDecoder
 
+        # built before the broker is reached: a codec that cannot be
+        # built raises here, never as an unreachable broker
+        self._dec = NativeDecoder() if decoder == "native" else None
         self.log = logging.getLogger(__name__)
         self.c = KafkaClient(bootstrap)
         self.topic = topic
@@ -260,7 +278,10 @@ class KafkaSource(Source):
         # and retention-forced offset reset counts
         self._counters = {"kafka_fetch_errors": 0,
                           "kafka_offset_resets": 0,
-                          "kafka_discover_errors": 0}
+                          "kafka_discover_errors": 0,
+                          "kafka_native_fallback_blobs": 0,
+                          "values_decoded_native": 0,
+                          "values_decoded_python": 0}
         self._discover()
         self._rr = 0  # round-robin cursor
         self._intern_p: dict = {}
@@ -387,10 +408,93 @@ class KafkaSource(Source):
         return values
 
     def poll(self, max_events):
+        if self._dec is not None:
+            return self._poll_native(max_events)
         values = self._fetch_values(max_events)
         t0 = _time.monotonic()
         cols = _decode_json_values(values, self._intern_p, self._intern_v)
         self._spans["decode"] += _time.monotonic() - t0
+        self._counters["values_decoded_python"] += len(values)
+        return cols
+
+    def _poll_native(self, max_events):
+        """One sweep of the partitions: each fetch's blob decodes to a
+        joined values buffer in C++ (``KafkaClient.fetch_values``), and
+        the joined buffers decode to columns in C++.  Per-record Python
+        runs only for a blob that the native framing refused, whose
+        values are re-framed into the same stream."""
+        if not self._offsets:
+            self._discover()
+        parts = sorted(self._offsets)
+        if not parts:
+            return []
+        blobs: list[bytes] = []
+        n_out = n_native = n_python = pre_dropped = 0
+        for k in range(len(parts)):
+            if n_out >= max_events:
+                break
+            p = parts[(self._rr + k) % len(parts)]
+            res = self._guarded_fetch(
+                p, lambda p=p: self.c.fetch_values(
+                    self.topic, p, self._offsets[p],
+                    max_bytes=self.fetch_max_bytes, max_wait_ms=50))
+            if res is None:
+                continue
+            _hw, fv = res
+            if fv.skipped_batches:
+                self.log.warning("skipped %d undecodable batches on %s[%d]",
+                                 fv.skipped_batches, self.topic, p)
+            if hasattr(fv, "blob"):  # native KafkaValues
+                room = max_events - n_out
+                nv = len(fv)
+                if nv <= room:
+                    if nv:
+                        blobs.append(fv.blob)
+                        n_out += nv
+                        n_native += nv
+                    # next_offset covers every value, null and skipped batch
+                    self._offsets[p] = max(self._offsets[p], fv.next_offset)
+                else:
+                    blobs.append(fv.blob[:int(fv.val_pos[room])])
+                    # resume at the first untaken value, so nulls and
+                    # skipped batches between the last taken and the first
+                    # untaken value are not fetched (and warned) again
+                    self._offsets[p] = int(fv.val_off[room])
+                    n_out += room
+                    n_native += room
+                continue
+            # FetchResult: the native framing refused this blob
+            self._counters["kafka_native_fallback_blobs"] += 1
+            taken = 0
+            for r in fv.records:
+                if n_out >= max_events:
+                    break
+                taken += 1
+                self._offsets[p] = r.offset + 1
+                if r.value is None:
+                    continue
+                n_python += 1
+                try:
+                    blobs.append(
+                        json.dumps(json.loads(r.value)).encode() + b"\n")
+                    n_out += 1
+                except (ValueError, UnicodeDecodeError):
+                    pre_dropped += 1  # malformed -> dropped (ref filters)
+            if taken == len(fv.records):
+                self._offsets[p] = max(self._offsets[p], fv.next_offset)
+        self._rr = (self._rr + 1) % max(len(parts), 1)
+        self._counters["values_decoded_native"] += n_native
+        self._counters["values_decoded_python"] += n_python
+        if not blobs:
+            if pre_dropped:
+                cols = columns_from_arrays([], [], [], [])
+                cols.n_dropped = pre_dropped
+                return cols
+            return []
+        t0 = _time.monotonic()
+        cols, _ = self._dec.decode(b"".join(blobs), final=True)
+        self._spans["decode"] += _time.monotonic() - t0
+        cols.n_dropped += pre_dropped
         return cols
 
     def offset(self):
@@ -403,3 +507,5 @@ class KafkaSource(Source):
 
     def close(self):
         self.c.close()
+        if self._dec is not None:
+            self._dec.close()

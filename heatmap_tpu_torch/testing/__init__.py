@@ -1,1 +1,2 @@
-"""In-process wire-level fakes of external services (a Kafka broker)."""
+"""In-process wire-level fakes of external services (a Kafka broker, a
+MongoDB server)."""

@@ -294,35 +294,49 @@ def test_crash_between_poll_and_dispatch_replays_polled_batch(
 
 
 class _FailingStore(MemoryStore):
-    """A store whose ``fail_at``-th packed upsert raises (once)."""
+    """A store whose packed upserts raise on the calls in ``fail``."""
 
-    def __init__(self, fail_at):
+    def __init__(self, fail):
         super().__init__()
-        self.calls, self.fail_at = 0, fail_at
+        self.calls, self.fail = 0, set(fail)
 
     def upsert_tiles_packed(self, body, meta):
         self.calls += 1
-        if self.calls == self.fail_at:
+        if self.calls in self.fail:
             raise OSError("sink write failed")
         return super().upsert_tiles_packed(body, meta)
 
 
-def test_failed_sink_write_commits_nothing_past_it(tmp_path):
-    """A flush whose upsert raises has already taken every parked batch
-    out of the ring: the exit commit must not record offsets past
-    batches whose docs never landed.  The last good commit stays, and a
-    resume on the same store replays to the uninterrupted run's docs."""
+def _sink_run(tmp_path, store):
     cfg = mk_cfg(tmp_path, emit_flush_k=8)
     src = lambda: SyntheticSource(n_events=8 * 512, n_vehicles=60,
                                   events_per_second=2048)
-    store = _FailingStore(fail_at=4)   # batch 4: the second flush's first
     rt = MicroBatchRuntime(cfg, src(), store, device="cpu",
                            checkpoint_every=3)
-    with pytest.raises(OSError, match="sink write failed"):
-        rt.run()                       # epoch 6's checkpoint flush raises
+    rt.writer.backoff_s = 0.001        # the retries' backoff, shortened
+    return cfg, src, rt
+
+
+def test_failed_sink_write_commits_nothing_past_it(tmp_path):
+    """A flush hands its batches to the writer thread and empties the
+    ring; a write that fails past the writer's retries poisons it, and
+    the commit that drains the writer fails: no commit may record offsets
+    past batches whose docs never landed.  The last good commit stays,
+    and a resume on the same store replays to the uninterrupted run's
+    docs."""
+    # batch 4, the second flush's first write, fails on every attempt
+    # (1 + 3 retries)
+    store = _FailingStore(fail=range(4, 8))
+    cfg, src, rt = _sink_run(tmp_path, store)
+    for _ in range(6):
+        assert rt.step_once()          # epoch 6's checkpoint flushes 4-6
+    rt.writer._q.join()                # the writer has given up on batch 4
+    with pytest.raises(RuntimeError, match="async sink write failed") as e:
+        rt.close()                     # nothing folds or commits
+    assert isinstance(e.value.__cause__, OSError)
     meta = rt.ckpt.load_meta()
     assert meta["epoch"] == 3 and meta["offset"] == 3 * 512
-    assert rt._poisoned and rt.epoch == 6
+    assert rt.writer.poisoned and rt.epoch == 6
     assert rt.counters["checkpoints"] == 1
     with pytest.raises(RuntimeError, match="earlier flush lost"):
         rt.flush_pending()             # nothing flushes or commits again
@@ -338,6 +352,26 @@ def test_failed_sink_write_commits_nothing_past_it(tmp_path):
     ref.run()
     assert_slabs_equal(rt2, ref)
     assert store._tiles == ref_store._tiles
+
+
+def test_transient_sink_write_is_retried(tmp_path):
+    """A write that fails once lands on its retry: one retry counted, the
+    run commits as usual, and the docs and slab equal an uninterrupted
+    run's."""
+    store = _FailingStore(fail={4})
+    _, src, rt = _sink_run(tmp_path, store)
+    rt.run()
+    assert rt.metrics["sink_retries"] == 1 and not rt.writer.poisoned
+    assert rt.ckpt.load_meta()["epoch"] == 8
+    assert rt.counters["checkpoints"] == 3
+    ref_store = MemoryStore()
+    ref = MicroBatchRuntime(mk_cfg(tmp_path, emit_flush_k=8, checkpoint_dir=
+                                   str(tmp_path / "ref")), src(), ref_store,
+                            device="cpu", checkpoint_every=3)
+    ref.run()
+    assert_slabs_equal(rt, ref)
+    assert store._tiles == ref_store._tiles
+    assert store._positions == ref_store._positions
 
 
 def test_checkpoint_commit_is_async(tmp_path, monkeypatch):

@@ -7,11 +7,15 @@
   package's mock broker (produce, fetch, ListOffsets LATEST/EARLIEST,
   OFFSET_OUT_OF_RANGE, version negotiation against a 4.x table).
 - Source: the port's ``KafkaSource`` and the JAX ``KafkaSource`` (wire
-  impl, JSON values, its Python decoder: ``heatmap_tpu.native.
-  maybe_decoder`` is patched to None for the test) poll one topic to
-  identical ``EventColumns``, array for array, and identical counters and
-  offsets: malformed and undecodable values, tombstones, millisecond
-  timestamps, a seek with string keys, an out-of-range offset reset.
+  impl, JSON values) poll one topic to identical ``EventColumns``, array
+  for array, and identical counters and offsets: malformed and
+  undecodable values, tombstones, millisecond timestamps, a seek with
+  string keys, an out-of-range offset reset.  Twice: on the Python codecs
+  (the port's ``decoder="python"``; ``heatmap_tpu.native.maybe_decoder``
+  patched to None on the JAX side), and on the native codecs of both
+  packages, where a record batch holding a newline-bearing value sends its
+  whole fetch to the Python record path in both (the port counts it in
+  ``kafka_native_fallback_blobs``).
 - Parsing: ``parse_events`` and ``parse_ts`` agree on a malformed corpus.
 - End to end: both runtimes consume one mock-broker topic to the same docs
   (the bars of ``test_torch_pipelines.py``), and a port run killed after a
@@ -179,9 +183,10 @@ def test_client_and_broker_across_packages(client_pkg, broker_pkg, kip896):
         assert conn._use[0] == 7 and conn._use[1] == 11   # produce, fetch
         assert conn._use[2] == 3 and conn._use[3] == 7    # offsets, metadata
         if client_pkg == "port":
-            hw, fr = c.fetch_values("t1", 0, 1)
-            assert hw == 3 and [r.value for r in fr.records] == [b"two",
-                                                                 b"three"]
+            # the values framed by the native codec, from offset 1
+            hw, kv = c.fetch_values("t1", 0, 1)
+            assert hw == 3 and kv.blob == b"two\nthree\n"
+            assert list(kv.val_off) == [1, 2] and kv.next_offset == 3
         c.close()
 
 
@@ -248,12 +253,27 @@ def assert_columns_equal(a, b):
         (b.providers, b.vehicles, b.n_dropped)
 
 
+def _jax_counters(mine):
+    """The port source's counters that the JAX source also keeps."""
+    return {k: v for k, v in mine.counters.items()
+            if k.startswith("kafka_") and k != "kafka_native_fallback_blobs"}
+
+
+@pytest.fixture
+def native_decoder(monkeypatch):
+    """The JAX wire impl on its native path (``maybe_decoder`` as is)."""
+    for k in ("HEATMAP_EVENT_FORMAT", "HEATMAP_KAFKA_IMPL",
+              "HEATMAP_FETCH_MAX_BYTES", "HEATMAP_FEEDER"):
+        monkeypatch.delenv(k, raising=False)
+
+
 def test_kafka_source_polls_as_the_jax_source(python_decoder):
     keys, values = corpus()
     with tmock.MockKafkaBroker() as bootstrap:
-        mine = KafkaSource(bootstrap, TOPIC)          # both at LATEST
+        mine = KafkaSource(bootstrap, TOPIC,          # both at LATEST
+                           decoder="python")
         ref = JaxKafkaSource(bootstrap, TOPIC, impl="wire")
-        assert ref._impl._dec is None
+        assert ref._impl._dec is None and mine._dec is None
         produce_values(tclient, bootstrap, TOPIC, values, keys, batch=50)
         n_polls = 0
         for max_events in [7, 64, 1, 150, 1000, 1000, 5]:
@@ -262,7 +282,10 @@ def test_kafka_source_polls_as_the_jax_source(python_decoder):
             assert mine.offset() == ref.offset()
             n_polls += 1
         assert sum(mine.offset().values()) == len(values)
-        assert mine.counters == ref.counters
+        assert _jax_counters(mine) == ref.counters
+        assert mine.counters["values_decoded_native"] == 0
+        assert mine.counters["values_decoded_python"] == sum(
+            v is not None for v in values)
         assert set(mine.take_spans()) == set(ref.take_spans()) == {
             "fetch", "decode"}
         # a committed map comes back from meta.json with string keys
@@ -279,8 +302,46 @@ def test_kafka_source_polls_as_the_jax_source(python_decoder):
         assert_columns_equal(mine.poll(30), ref.poll(30))
         assert_columns_equal(mine.poll(30), ref.poll(30))
         assert mine.offset() == ref.offset()
-        assert mine.counters == ref.counters
+        assert _jax_counters(mine) == ref.counters
         assert mine.counters["kafka_offset_resets"] == 1
+        mine.close()
+        ref.close()
+
+
+def test_native_kafka_source_polls_as_the_jax_native_source(native_decoder):
+    """Both packages on their native codecs (the reference's path when g++
+    is present): the same columns, offsets and counters poll by poll; a
+    batch with a pretty-printed value sends its fetch to the Python record
+    path in both."""
+    keys, values = corpus()
+    pretty = json.dumps(_event(5, 1_700_000_000), indent=1).encode()
+    with tmock.MockKafkaBroker() as bootstrap:
+        mine = KafkaSource(bootstrap, TOPIC)
+        ref = JaxKafkaSource(bootstrap, TOPIC, impl="wire")
+        assert ref._impl._dec is not None and mine._dec is not None
+        produce_values(tclient, bootstrap, TOPIC, values, keys, batch=50)
+        c = tclient.KafkaClient(bootstrap)
+        c.produce(TOPIC, 1, [trecords.Record(0, 0, b"k", pretty),
+                             trecords.Record(0, 0, b"k", b"{broken\n")])
+        c.close()
+        n_values = sum(v is not None for v in values) + 2
+        for max_events in [7, 64, 1, 150, 1000, 1000, 1000, 5]:
+            a, b = mine.poll(max_events), ref.poll(max_events)
+            assert_columns_equal(a, b)
+            assert mine.offset() == ref.offset()
+        assert sum(mine.offset().values()) == len(values) + 2
+        assert _jax_counters(mine) == ref.counters
+        got = mine.counters
+        assert got["kafka_native_fallback_blobs"] >= 1
+        assert 0 < got["values_decoded_python"] < n_values
+        assert got["values_decoded_native"] + got["values_decoded_python"] \
+            == n_values
+        committed = json.loads(json.dumps({0: 3, 1: 0, 2: 40}))
+        mine.seek(committed)
+        ref.seek(committed)
+        for _ in range(3):
+            assert_columns_equal(mine.poll(200), ref.poll(200))
+            assert mine.offset() == ref.offset()
         mine.close()
         ref.close()
 
@@ -386,7 +447,8 @@ def test_runtimes_consume_one_topic_to_the_same_docs(tmp_path, monkeypatch,
                                store="memory", kafka_bootstrap=bootstrap,
                                **AXES)
         store, jstore = MemoryStore(), JaxMemoryStore()
-        rt = MicroBatchRuntime(cfg, KafkaSource(bootstrap, TOPIC), store,
+        rt = MicroBatchRuntime(cfg, KafkaSource(bootstrap, TOPIC,
+                                                decoder="python"), store,
                                device="cpu")
         jrt = JaxRuntime(jcfg, JaxKafkaSource(bootstrap, TOPIC,
                                               impl="wire"), jstore)

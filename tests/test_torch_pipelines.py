@@ -402,20 +402,23 @@ def _entry_env(tmp_path, **extra):
         "PYTHONSTARTUP", "HEATMAP_FEEDER", "HEATMAP_EVENT_FORMAT",
         "HEATMAP_KAFKA_IMPL")}
     # the live presets take their batch and slab from the env (a small
-    # batch here); opensky_global pins its own 2^19-row slab
-    env.update(BATCH_SIZE="1024", STATE_CAPACITY_LOG2="12",
-               CHECKPOINT=str(tmp_path / "ckpt"), JAX_PLATFORMS="cpu",
-               **extra)
+    # batch here); opensky_global pins its own 2^19-row slab.  The store
+    # is named: HEATMAP_STORE=auto would try a Mongo server on 27017
+    env.update({"BATCH_SIZE": "1024", "STATE_CAPACITY_LOG2": "12",
+                "CHECKPOINT": str(tmp_path / "ckpt"), "JAX_PLATFORMS": "cpu",
+                "HEATMAP_STORE": "memory", **extra})
     return env
 
 
 def _run_entry(env, name, timeout=300):
+    """``python -m heatmap_tpu_torch.stream [name] --device cpu
+    --max-batches 2``; no name takes the entry point's default."""
     import subprocess
 
     p = subprocess.run(
-        [sys.executable, "-m", "heatmap_tpu_torch.stream", name, "--device",
-         "cpu", "--max-batches", "2"], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=timeout)
+        [sys.executable, "-m", "heatmap_tpu_torch.stream",
+         *([name] if name else []), "--device", "cpu", "--max-batches", "2"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
     assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-4000:]
     return json.loads(p.stdout.strip().splitlines()[-1]), p.stderr
 
@@ -441,6 +444,31 @@ def test_entry_point_runs_each_live_pipeline_on_the_cpu(tmp_path, name):
     assert out["batches"] == 3 and out["events_valid"] == 3 * 1024
     assert out["tiles"] > 0 and out["state_overflow"] == 0
     assert out["checkpoints"] == 1
+
+
+def test_entry_point_defaults_to_mbta_default_into_the_jsonl_store(
+        tmp_path):
+    """No pipeline named: ``mbta_default`` (here on its synthetic
+    fallback), with HEATMAP_STORE=jsonl writing ``<CHECKPOINT>/
+    store.jsonl``, which reloads to the docs the run reports."""
+    import socket
+
+    from heatmap_tpu_torch.sink import JsonlStore
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    closed = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    out, _ = _run_entry(_entry_env(tmp_path, KAFKA_BOOTSTRAP=closed,
+                                   HEATMAP_STORE="jsonl"), None)
+    assert out["pipeline"] == "mbta_default" and out["store"] == "JsonlStore"
+    assert out["tiles"] > 0 and out["positions"] > 0
+    assert out["tiles_written"] >= out["tiles"]
+    assert out["positions_written"] == out["positions_emitted"] > 0
+    store = JsonlStore(str(tmp_path / "ckpt"))
+    assert (store.n_tiles, store.n_positions) == (out["tiles"],
+                                                  out["positions"])
+    store.close()
 
 
 def test_entry_point_reads_a_live_kafka_topic(tmp_path):

@@ -262,6 +262,7 @@ def test_idle_poll_flushes(tmp_path, default_env):
     assert len(rt._ring) == 1 and store.n_tiles == 0
     assert not rt.step_once()                # idle: the parked batch lands
     assert len(rt._ring) == 0 and rt.pulls["idle"] == 1
+    rt.writer.drain()                        # its docs land on the writer
     assert store.n_tiles > 0
     assert rt.step_once()
     rt.close()
@@ -329,6 +330,10 @@ from heatmap_tpu_torch.models.pipelines import PIPELINES
 from heatmap_tpu_torch.stream.source import KafkaSource, MemorySource
 from heatmap_tpu_torch.testing.mock_kafka import MockKafkaBroker
 from heatmap_tpu_torch.utils.netio import recv_exact
+import heatmap_tpu_torch.native
+from heatmap_tpu_torch.sink import AsyncWriter, JsonlStore, make_store
+from heatmap_tpu_torch.sink.mongo import MongoStore
+from heatmap_tpu_torch.testing.mock_mongod import MockMongod
 
 # the Kafka ingress over a mock broker, the wire client, the registry
 with MockKafkaBroker() as bootstrap:
@@ -339,6 +344,7 @@ with MockKafkaBroker() as bootstrap:
         b'"ts": 1700000000}'))])
     c.close()
     assert len(src.poll(10)) == 1
+    assert src.counters["values_decoded_native"] == 1
     src.close()
 assert len(PIPELINES) == 5 and len(MemorySource([{}]).poll(5)) == 1
 
@@ -349,8 +355,25 @@ store = MemoryStore()
 rt = MicroBatchRuntime(cfg, SyntheticSource(n_events=2048), store,
                        device="cpu")
 rt.run()
-assert store.n_tiles > 0
+assert store.n_tiles > 0 and store.n_positions > 0
 shutil.rmtree(cfg.checkpoint_dir)
+
+# the same run through the writer into Mongo over the wire client and the
+# C++ encoders, and into the JSONL store
+with MockMongod() as uri:
+    for kind in ("mongo", "jsonl"):
+        cfg = load_config({"HEATMAP_STORE": kind, "MONGO_URI": uri},
+                          city="bos", h3_res=9, resolutions=(9,),
+                          batch_size=1024, state_capacity_log2=12,
+                          checkpoint_dir=tempfile.mkdtemp())
+        store = make_store(cfg)
+        rt = MicroBatchRuntime(cfg, SyntheticSource(n_events=2048), store,
+                               device="cpu")
+        rt.run()
+        store.close()
+        m = rt.metrics
+        assert m["tiles_written"] > 0 and m["positions_written"] > 0, m
+        shutil.rmtree(cfg.checkpoint_dir)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "heatmap_tpu" or m.startswith("heatmap_tpu."))
@@ -386,3 +409,111 @@ def test_port_sources_name_no_jax_import():
                 if root in ("jax", "jaxlib", "heatmap_tpu"):
                     offenders.append(f"{path.relative_to(REPO)}: {name}")
     assert not offenders, offenders
+
+
+# --- the entry point's default and the knobs (ROADMAP queue C, C1 and C2) ----
+
+class _ParserSeen(Exception):
+    pass
+
+
+def _entry_parser(main, monkeypatch):
+    """The argparse parser ``main`` builds, caught at its parse."""
+    import argparse
+
+    seen = {}
+
+    def parse_args(self, args=None, namespace=None):
+        seen["parser"] = self
+        raise _ParserSeen
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse_args)
+    with pytest.raises(_ParserSeen):
+        main([])
+    return {a.dest: a for a in seen["parser"]._actions}
+
+
+def test_entry_point_default_pipeline_matches_jax(monkeypatch):
+    """C1: both entry points default to the same pipeline
+    (``mbta_default``) over the same choices."""
+    from heatmap_tpu.stream import __main__ as jentry
+    from heatmap_tpu_torch.stream import __main__ as tentry
+
+    mine = _entry_parser(tentry.main, monkeypatch)["pipeline"]
+    ref = _entry_parser(jentry.main, monkeypatch)["pipeline"]
+    assert mine.default == ref.default == "mbta_default"
+    assert list(mine.choices) == list(ref.choices)
+
+
+@pytest.mark.parametrize("knob,on,off", [
+    ("HEATMAP_SHARDS", "2", "1"),
+    ("HEATMAP_SHARD_INDEX", "1", "0"),
+    ("HEATMAP_REDUCERS", "count,kalman", "count"),
+    ("HEATMAP_GOVERN", "1", "0"),
+    ("HEATMAP_AUDIT", "true", "false"),
+    ("HEATMAP_QUALITY", "1", ""),
+    ("HEATMAP_REPL_DIR", "repl-feed", ""),
+    ("HEATMAP_HIST_DIR", "history", ""),
+    ("HEATMAP_TSDB", "1", "0"),
+])
+def test_unported_knob_raises_by_name(knob, on, off):
+    """C2: a knob that turns on a subsystem the port lacks raises, naming
+    itself and the ROADMAP item that ports it; its "off" value loads in
+    both packages."""
+    with pytest.raises(NotImplementedError, match=knob) as e:
+        load_config({knob: on})
+    assert "ROADMAP A" in str(e.value)
+    load_config({knob: off})
+    jax_load_config({knob: off})
+
+
+class _Clock:
+    """The time module, with ``sleep`` recorded instead of slept."""
+
+    def __init__(self):
+        import time
+
+        self._time, self.sleeps = time, []
+
+    def sleep(self, s):
+        self.sleeps.append(s)
+
+    def __getattr__(self, name):
+        return getattr(self._time, name)
+
+
+def test_trigger_ms_paces_as_in_jax(tmp_path, monkeypatch, default_env):
+    """C2: with TRIGGER_MS each batch that progressed is followed by a
+    sleep for what is left of the interval, and nothing else sleeps, as
+    in the reference's ``run``."""
+    from heatmap_tpu.stream import runtime as jruntime
+    from heatmap_tpu_torch.stream import runtime as truntime
+
+    env = {"TRIGGER_MS": "60000"}
+    src = dict(n_events=3 * 512, n_vehicles=50, events_per_second=64)
+    axes = dict(AXES, batch_size=512, state_capacity_log2=12)
+    sleeps = {}
+    for pkg, mod in (("port", truntime), ("jax", jruntime)):
+        clock = _Clock()
+        monkeypatch.setattr(mod, "time", clock)
+        if pkg == "port":
+            cfg = load_config(env, checkpoint_dir=str(tmp_path / pkg), **axes)
+            rt = MicroBatchRuntime(cfg, SyntheticSource(**src), MemoryStore(),
+                                   device="cpu", checkpoint_every=0)
+        else:
+            cfg = jax_load_config(env, checkpoint_dir=str(tmp_path / pkg),
+                                  store="memory", **axes)
+            rt = JaxRuntime(cfg, JaxSyntheticSource(**src), JaxMemoryStore(),
+                            checkpoint_every=0)
+        assert cfg.trigger_ms == 60_000
+        rt.run()
+        sleeps[pkg] = clock.sleeps
+    for got in sleeps.values():
+        assert len(got) == 3 and all(0.0 < s <= 60.0 for s in got), got
+    # and TRIGGER_MS=0 (the default) never sleeps after a batch
+    clock = _Clock()
+    monkeypatch.setattr(truntime, "time", clock)
+    MicroBatchRuntime(load_config({}, checkpoint_dir=str(tmp_path / "zero"),
+                                  **axes), SyntheticSource(**src),
+                      MemoryStore(), device="cpu", checkpoint_every=0).run()
+    assert clock.sleeps == []
