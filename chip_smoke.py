@@ -96,6 +96,20 @@ Phases, one JSON line each:
                 topic read at the default 4-MiB fetch, and each native
                 codec's host time on one 2^17 batch beside its Python
                 version.
+10. infer       synthetic_backfill's preset (2^19 batches, 20,000
+                vehicles, res 9) with HEATMAP_REDUCERS=count,kalman.  The
+                rounds kernel (infer/csrc/kalman_rounds.cu) against its
+                plain version on the card, exact on every output, on the
+                round sets the engine builds for the first two batches (K ~
+                27, M = 20,000) and on a full table (K = 8, M = 2^17): its
+                time, the plain version's, the bound, and filter_rounds'
+                host time with its copies.  Then 16 batches through the
+                runtime: one kalman_rounds launch and one snap launch a
+                batch, conservation, velocity on the docs (finite), the
+                count docs equal to a kalman-off run's without the velocity
+                columns, and the entity table equal, within the CPU tests'
+                bar, to the same batches folded by the plain version on the
+                CPU, with the same counters and anomalies by reason.
 
 Then one line listing every kernel (launches on the main path and in
 every later phase, agreement with its plain version, its time, the plain
@@ -1340,6 +1354,255 @@ def native_codec_times(keys, values, idx, cols, body):
     }
 
 
+# the infer phase: synthetic_backfill's preset with the Kalman reducer
+INFER_BATCHES = 16
+INFER_TABLE = (8, 1 << 17)     # (K, M) of the full-table round set
+# the filter's constants, as infer/engine.py passes them
+KALMAN_KW = dict(q=0.5, r_m=25.0, gate=13.816, p0_pos=625.0, p0_vel=100.0)
+# f32 operations of one (round, entity) of the rounds scan, each add,
+# subtract, multiply, divide and compare counted once and the hypot as one
+# (selects not counted; a lower bound): the clamp 1, dt2 and dt3 3, the
+# predicted covariance 42, the predicted position 4, the innovation 2,
+# S and its determinant 6, its inverse 4, the NIS 9, the gain 24, the
+# updated state 16, B = (I - KH) Pp 64, the Joseph covariance 90, the gate
+# 1 and the speed 1
+ROUND_OPS = 267
+
+
+def rounds_work(valid) -> tuple[float, float]:
+    """(bytes, operations) the rounds scan needs on these inputs: per
+    (round, entity) z 8, dt 4, valid 1 and reseed 1 in and nis 4, tele 1,
+    spd 4 and inn 8 out; per entity x and P in and out, 160 B; ROUND_OPS
+    for each valid (round, entity) (an invalid lane needs no filter
+    work)."""
+    k, m = valid.shape
+    return 31.0 * k * m + 160.0 * m, float(ROUND_OPS) * int(valid.sum())
+
+
+def rounds_check(torch, kalman, args, dev):
+    """The kernel against its plain version on the card on one round set
+    (numpy args of filter_rounds): identical share and max abs difference
+    per output, the kernel's time, the plain version's, the bound, and
+    filter_rounds' host time with its copies on the engine's stream.
+    Bar: exact on every output (both round op by op on the card)."""
+    x, P, z, dt, valid, reseed = args
+    consts = kalman.filter_consts(**KALMAN_KW)
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
+    got = kalman.kalman_rounds(*ins, consts)
+    ref = kalman.filter_rounds_reference(*ins, consts)
+    torch.cuda.synchronize()
+    fields = {}
+    for name, a, b in zip(("x", "P", "nis", "tele", "spd", "inn"), got, ref):
+        same = float((a == b).float().mean())
+        err = float((a.double() - b.double()).abs().max())
+        fields[name] = {"identical": same, "max_abs_err": err}
+        if same != 1.0:
+            raise AssertionError(f"kalman_rounds vs plain, {name} at K, M = "
+                                 f"{valid.shape}: {same} identical, max abs "
+                                 f"err {err}")
+    ms = time_ms(torch, lambda: kalman.kalman_rounds(*ins, consts), inner=20)
+    plain_ms = time_ms(
+        torch, lambda: kalman.filter_rounds_reference(*ins, consts), inner=1)
+    staging = kalman.RoundsStaging(dev)
+    kalman.filter_rounds(*args, **KALMAN_KW, device=dev, staging=staging)
+    host = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        kalman.filter_rounds(*args, **KALMAN_KW, device=dev, staging=staging)
+        host.append((time.perf_counter() - t0) * 1e3)
+    n_bytes, n_ops = rounds_work(valid)
+    bms, by = bound_ms(n_bytes, n_ops)
+    return {"k": int(valid.shape[0]), "m": int(valid.shape[1]),
+            "valid_lanes": int(valid.sum()),
+            "reseed_lanes": int((valid & reseed).sum()),
+            "teleport_lanes": int(got[3].sum()),
+            "dt_le0_lanes": int((valid & (dt <= 0)).sum()),
+            "fields": fields,
+            "max_abs_err": max(f["max_abs_err"] for f in fields.values()),
+            "ms": ms, "plain_ms": plain_ms, "bytes": n_bytes, "ops": n_ops,
+            "bound_ms": bms, "bound_by": by,
+            "filter_rounds_host_ms": float(np.median(host))}
+
+
+def table_round_set(k, m):
+    """A full table's round set from the seed: warm states, a
+    constant-velocity walk with GPS noise, 1% teleports, 10% empty lanes,
+    1% handoff re-seeds (half of the teleport lanes among them, where the
+    re-seed takes precedence over the gate), and 1% each of dt = 0 and
+    dt < 0 (the kernel's clamp), so every branch of the kernel is held
+    against the plain version."""
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(0, 300, (m, 4)).astype(np.float32)
+    P = np.zeros((m, 4, 4), np.float32)
+    P[:, [0, 1, 2, 3], [0, 1, 2, 3]] = rng.uniform(5, 50, (m, 4))
+    t = np.cumsum(rng.uniform(1, 10, (k, m)), axis=0)
+    z = (x[None, :, :2] + x[None, :, 2:] * t[..., None]
+         + rng.normal(0, 10, (k, m, 2))).astype(np.float32)
+    jump = rng.random((k, m)) < 0.01
+    z[jump] += np.float32(50_000.0)
+    dt = np.diff(t, axis=0, prepend=0.0).astype(np.float32)
+    dt[rng.random((k, m)) < 0.01] = np.float32(0.0)
+    back = rng.random((k, m)) < 0.01
+    dt[back] = -dt[back]
+    valid = rng.random((k, m)) < 0.9
+    reseed = (rng.random((k, m)) < 0.01) | (jump & (rng.random((k, m)) < 0.5))
+    return x, P, z, dt, valid, reseed
+
+
+def infer_source():
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+
+    p = get_pipeline("synthetic_backfill")
+    src = p.make_source(p.config)
+    src.n_events = INFER_BATCHES * p.config.batch_size
+    return p, src
+
+
+def table_agreement(a, b) -> dict:
+    """Two entity tables by entity name: the share of identical x and P
+    words, the largest difference, and the integer lanes equal; raises
+    beyond the CPU tests' bar (rtol 1e-5, atol 1e-3)."""
+    na = {a.names[int(s)]: int(s) for s in np.nonzero(a.vid >= 0)[0]}
+    nb = {b.names[int(s)]: int(s) for s in np.nonzero(b.vid >= 0)[0]}
+    if na.keys() != nb.keys():
+        raise AssertionError(f"entity sets differ by "
+                             f"{len(na.keys() ^ nb.keys())}")
+    sa = np.asarray([na[n] for n in sorted(na)])
+    sb = np.asarray([nb[n] for n in sorted(na)])
+    out = {"entities": len(sa)}
+    for col in ("x", "P", "nis_ewma"):
+        u, v = getattr(a, col)[sa], getattr(b, col)[sb]
+        np.testing.assert_allclose(u, v, rtol=1e-5, atol=1e-3, err_msg=col)
+        out[col] = {"identical": float((u == v).mean()),
+                    "max_abs_err": float(np.abs(u.astype(np.float64)
+                                                - v).max())}
+    for col in ("last_ts", "n_upd", "moving", "stop_ts", "stop_alerted",
+                "dev_alerted"):
+        np.testing.assert_array_equal(getattr(a, col)[sa],
+                                      getattr(b, col)[sb], err_msg=col)
+    return out
+
+
+def phase_infer(torch, run_pipeline, snap_kernel, ckpt_root, dev):
+    """synthetic_backfill's preset with HEATMAP_REDUCERS=count,kalman: the
+    rounds kernel against its plain version on the main path's round sets
+    and on a full table, then the path itself for INFER_BATCHES batches
+    (launches, spans, anomalies, velocity docs), its count docs against a
+    kalman-off run's, and its entity table against the same batches folded
+    by the plain version on the CPU."""
+    from heatmap_tpu_torch.infer import engine as tengine
+    from heatmap_tpu_torch.infer import kalman
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+
+    p, src = infer_source()
+    cfg = p.config
+    # the main path's round sets: the rounds of its first two batches, as
+    # the engine builds them, captured from a fold on the CPU
+    captured = []
+    real = tengine.filter_rounds
+
+    def capture(*args, **kw):
+        captured.append(args)
+        return real(*args, **kw)
+
+    tengine.filter_rounds = capture
+    try:
+        cpu_engine = tengine.InferenceEngine(
+            dataclasses.replace(cfg, reducers=("count", "kalman")),
+            device="cpu")
+        cpu_src = infer_source()[1]
+        cpu_batches = 0
+        while len(cols := cpu_src.poll(cfg.batch_size)):
+            cpu_engine.fold_batch(cols)
+            cpu_engine.drain_anomalies()
+            cpu_batches += 1
+    finally:
+        tengine.filter_rounds = real
+    sets = {"backfill_batch1": rounds_check(torch, kalman, captured[0], dev),
+            "backfill_batch2": rounds_check(torch, kalman, captured[1], dev),
+            "full_table": rounds_check(torch, kalman,
+                                       table_round_set(*INFER_TABLE), dev)}
+    lanes = {k: sets["full_table"][k]
+             for k in ("reseed_lanes", "teleport_lanes", "dt_le0_lanes")}
+    if not all(lanes.values()):
+        raise AssertionError(f"the full-table round set misses a branch of "
+                             f"the kernel: {lanes}")
+    # the path, counts set to 0 just before it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kalman.kalman_rounds.launches = 0
+    snap_kernel.latlng_to_cell_kernel.launches = 0
+    t0 = time.monotonic()
+    rt, store = run_pipeline("synthetic_backfill", device="cuda",
+                             checkpoint_dir=f"{ckpt_root}/kalman",
+                             source=src, store=MemoryStore(),
+                             reducers=("count", "kalman"))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kalman.kalman_rounds.launches
+    snap_launches = snap_kernel.latlng_to_cell_kernel.launches
+    peak_mem = torch.cuda.max_memory_allocated()
+    m = rt.metrics
+    n_events = INFER_BATCHES * cfg.batch_size
+    if launches != m["batches"] or m["batches"] != INFER_BATCHES:
+        raise AssertionError(f"kalman_rounds launched {launches} times in "
+                             f"{m['batches']} batches")
+    check_run("synthetic_backfill+kalman", m, store._tiles,
+              [cfg.pair_grid(cfg.h3_res, cfg.tile_minutes)], snap_launches,
+              1, n_events)
+    if m["infer_events_folded"] != n_events:
+        raise AssertionError(f"the engine folded {m['infer_events_folded']} "
+                             f"of {n_events} events")
+    docs = store._tiles
+    vel_docs = [d for d in docs.values() if "vxKmh" in d]
+    if not vel_docs or not all(np.isfinite([d["vxKmh"], d["vyKmh"]]).all()
+                               for d in vel_docs):
+        raise AssertionError(f"{len(vel_docs)} docs carry velocity, or a "
+                             f"velocity is not finite")
+    block = rt.infer.member_block()
+    agree = table_agreement(rt.infer.table, cpu_engine.table)
+    cpu_block = cpu_engine.member_block()
+    for b in (block, cpu_block):
+        b.pop("last_fold_ms")
+    if block != cpu_block or cpu_batches != INFER_BATCHES:
+        raise AssertionError(f"engine on the card {block} vs on the CPU "
+                             f"{cpu_block} ({cpu_batches} CPU batches)")
+    spans = {k: m["p50_span_ms"][k] for k in ("poll", "feed", "infer",
+                                              "dispatch", "positions",
+                                              "sink")}
+    infer_ms = list(rt.span_ms["infer"])
+    del rt
+    torch.cuda.empty_cache()
+    # the same batches with kalman off: the count docs are the same
+    off_rt, off_store = run_pipeline("synthetic_backfill", device="cuda",
+                                     checkpoint_dir=f"{ckpt_root}/count",
+                                     source=infer_source()[1],
+                                     store=MemoryStore())
+    strip = {k: {f: v for f, v in d.items() if f not in ("vxKmh", "vyKmh")}
+             for k, d in docs.items()}
+    if strip != off_store._tiles:
+        raise AssertionError("count docs with kalman on differ from the "
+                             "kalman-off run's")
+    off_wall_p50 = off_rt.metrics["p50_batch_ms"]
+    del off_rt, off_store
+    torch.cuda.empty_cache()
+    out = {"phase": "infer", "batches": m["batches"], "events": n_events,
+           "vehicles": src.n_vehicles, "wall_s": wall,
+           "events_per_s": n_events / wall,
+           "p50_batch_ms": m["p50_batch_ms"],
+           "p50_batch_ms_kalman_off": off_wall_p50,
+           "p50_span_ms": spans, "infer_span_ms": infer_ms,
+           "kalman_launches": launches, "snap_launches": snap_launches,
+           "entities": block["entities"], "anomalies": block["anomalies"],
+           "reseed_teleport": block["reseed_teleport"],
+           "tiles": len(docs), "tiles_with_velocity": len(vel_docs),
+           "count_docs_equal_kalman_off": True,
+           "table_vs_cpu_plain": agree, "peak_mem_bytes": peak_mem,
+           "round_sets": sets}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1393,8 +1656,12 @@ def main() -> int:
         opensky = phase_opensky(torch, run_pipeline, snap_kernel,
                                 f"{ckpt_root}/opensky", dev)
         kafka = phase_kafka(torch, run_pipeline, snap_kernel, ckpt_root, dev)
+        infer = phase_infer(torch, run_pipeline, snap_kernel, ckpt_root, dev)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    # the rounds kernel's numbers at the main path's shape: the round set
+    # of synthetic_backfill's second batch (warm states, every entity)
+    main_rounds = infer["round_sets"]["backfill_batch2"]
     by_res = {}
     for snaps in pipe_snaps.values():
         for res, v in snaps.items():
@@ -1412,6 +1679,7 @@ def main() -> int:
             k: v["snap_launches"] for k, v in pipes["presets"].items()},
         "launches_opensky_phase": opensky["snap_launches"],
         "launches_kafka_phase": kafka["snap_launches"],
+        "launches_infer_phase": infer["snap_launches"],
         "max_abs_err": main_err,
         "identical_share": main_share,
         "ms": snap["ms"],
@@ -1420,6 +1688,24 @@ def main() -> int:
         "bound_by": snap["bound_by"],
         "library_ms": None,
         "by_res_at_preset_batch": by_res,
+    }, {
+        "name": "kalman_rounds",
+        "route": "cuda",
+        "source": "heatmap_tpu_torch/infer/csrc/kalman_rounds.cu",
+        "replaces": "heatmap_tpu/infer/kalman.py:72",
+        "launches": infer["kalman_launches"],
+        "max_abs_err": main_rounds["max_abs_err"],
+        "identical_share": min(f["identical"]
+                               for f in main_rounds["fields"].values()),
+        "ms": main_rounds["ms"],
+        "plain_ms": main_rounds["plain_ms"],
+        "bound_ms": main_rounds["bound_ms"],
+        "bound_by": main_rounds["bound_by"],
+        "library_ms": None,
+        "k_m": [main_rounds["k"], main_rounds["m"]],
+        "full_table": {k: infer["round_sets"]["full_table"][k] for k in (
+            "k", "m", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")},
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

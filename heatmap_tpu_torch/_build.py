@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` source that a module names is compiled on first use with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
 interface, and loaded with ``ctypes``.  The host C++ codecs
 (``native/*.cpp``: the JSON-lines decoder, the Kafka record codec with its
-CRC32C, the BSON encoders of tile and position ops) build with ``g++``
+CRC32C, the BSON encoders of tile and position ops, the f64 H3 snap) build
+with ``g++``
 into one library, ``NATIVE_LIB``, with the reference's flags.  Every
 library lands in ``build/heatmap_tpu_torch/`` under the repository root,
 named by the hash of its sources and flags, so an edited source is rebuilt
@@ -39,7 +40,8 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17") + (
 # the host C++ codecs, one library (``load(NATIVE_LIB)``)
 NATIVE_LIB = "native"
 NATIVE_SOURCES = ("native/decoder.cpp", "native/tile_ops.cpp",
-                  "native/kafka_codec.cpp", "native/positions_ops.cpp")
+                  "native/kafka_codec.cpp", "native/positions_ops.cpp",
+                  "native/h3_snap.cpp")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -119,7 +121,8 @@ def load(source: str) -> ctypes.CDLL:
 
 
 # every kernel source of the package, built together by ``build_all``
-KERNEL_SOURCES = ("hexgrid/csrc/snap_cell.cu",)
+KERNEL_SOURCES = ("hexgrid/csrc/snap_cell.cu",
+                  "infer/csrc/kalman_rounds.cu")
 
 
 def build_all() -> dict[str, tuple[Path, float]]:

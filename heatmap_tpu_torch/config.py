@@ -40,15 +40,40 @@ def _flag_on(v: str) -> bool:
 
 # knob -> (does this value ask for the subsystem?, the ROADMAP item that
 # ports it); the reference's value when the knob is unset never does
+# HEATMAP_REDUCERS' closed name set, in canonical order
+KNOWN_REDUCERS = ("count", "kalman")
+
+
+def parse_reducers(spec: str) -> tuple:
+    """Normalize a ``HEATMAP_REDUCERS`` value to a validated, ordered,
+    deduplicated tuple.  ``count`` is mandatory: the device fold always
+    runs — a set that pretends otherwise would stamp artifacts with a
+    reducer set the runtime cannot honor."""
+    names = [s.strip() for s in str(spec).split(",") if s.strip()]
+    seen: list = []
+    for n in names:
+        if n not in KNOWN_REDUCERS:
+            raise ValueError(
+                f"HEATMAP_REDUCERS names unknown reducer {n!r}; known: "
+                f"{','.join(KNOWN_REDUCERS)}")
+        if n not in seen:
+            seen.append(n)
+    if "count" not in seen:
+        raise ValueError(
+            "HEATMAP_REDUCERS must include 'count' (the fused device "
+            "fold always runs; extra reducers ride its batches)")
+    # canonical order = KNOWN_REDUCERS order, so artifact stamps and
+    # regression-family comparisons never see two spellings of one set
+    return tuple(n for n in KNOWN_REDUCERS if n in seen)
+
+
 UNPORTED_KNOBS = {
     "HEATMAP_SHARDS": (lambda v: int(v) > 1, "A7, the process fleet"),
     "HEATMAP_SHARD_INDEX": (lambda v: int(v) != 0, "A7, the process fleet"),
-    "HEATMAP_REDUCERS": (
-        lambda v: bool({s.strip() for s in v.split(",") if s.strip()}
-                       - {"count"}), "A5, inference"),
     "HEATMAP_GOVERN": (_flag_on, "A7, the governor"),
     "HEATMAP_AUDIT": (_flag_on, "A6, observability"),
-    "HEATMAP_QUALITY": (_flag_on, "A5, inference"),
+    "HEATMAP_QUALITY": (_flag_on, "A5, the inference quality "
+                                  "observatory, after A4"),
     "HEATMAP_REPL_DIR": (bool, "A4, the serve and query tier"),
     "HEATMAP_HIST_DIR": (bool, "A4, the serve and query tier"),
     "HEATMAP_TSDB": (_flag_on, "A6, observability"),
@@ -98,6 +123,25 @@ class Config:
     prefetch_batches: int = 1
     trigger_ms: int = 0                # 0 = as fast as possible (ref default)
     store: str = "auto"                # "auto" | "memory" | "mongo" | "jsonl"
+    # HEATMAP_SHARD_RES: H3 parent resolution of a partition key; -1 = the
+    # snap resolution itself.  Read by the logical entity partition
+    # (HEATMAP_ENTITY_SHARDS); the process fleet is not ported
+    shard_res: int = -1
+    # HEATMAP_REDUCERS: the per-step reducer set riding the dispatched
+    # batches (parse_reducers); "count" is the fused device fold itself
+    # and always a member; "kalman" adds the entity filter (infer/engine.py)
+    reducers: tuple[str, ...] = ("count",)
+    entity_capacity: int = 1 << 17     # HEATMAP_ENTITY_CAPACITY: slot-table
+                                       # bound; TTL then exact-LRU eviction
+    entity_ttl_s: float = 900.0        # HEATMAP_ENTITY_TTL_S: an entity
+                                       # silent past this (event time) is
+                                       # evicted; also the filter's dt clamp
+    entity_shards: int = 0             # HEATMAP_ENTITY_SHARDS: logical
+                                       # entity-partition shard count for
+                                       # handoff re-seeds (0 = HEATMAP_SHARDS)
+    entity_stop_s: float = 120.0       # HEATMAP_ENTITY_STOP_S: filtered
+                                       # speed below the stop gate this long
+                                       # (after moving) raises "stopped"
 
     def pair_grid(self, res: int, wmin: int) -> str:
         """Sink grid label for a (res, window) pair: "h3r{res}" for the
@@ -140,6 +184,16 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
                               Config.prefetch_batches),
         trigger_ms=_int(e, "TRIGGER_MS", Config.trigger_ms),
         store=e.get("HEATMAP_STORE", Config.store),
+        shard_res=_int(e, "HEATMAP_SHARD_RES", Config.shard_res),
+        reducers=tuple(
+            s.strip() for s in e.get("HEATMAP_REDUCERS", "count").split(",")
+            if s.strip()),
+        entity_capacity=_int(e, "HEATMAP_ENTITY_CAPACITY",
+                             Config.entity_capacity),
+        entity_ttl_s=_float(e, "HEATMAP_ENTITY_TTL_S", Config.entity_ttl_s),
+        entity_shards=_int(e, "HEATMAP_ENTITY_SHARDS", Config.entity_shards),
+        entity_stop_s=_float(e, "HEATMAP_ENTITY_STOP_S",
+                             Config.entity_stop_s),
     )
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -169,4 +223,22 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         raise ValueError(
             f"HEATMAP_PREFETCH_BATCHES must be in 0..32, "
             f"got {cfg.prefetch_batches}")
+    object.__setattr__(cfg, "reducers", parse_reducers(
+        ",".join(cfg.reducers) if isinstance(cfg.reducers, (tuple, list))
+        else cfg.reducers))
+    if cfg.entity_capacity < 8:
+        raise ValueError(
+            f"HEATMAP_ENTITY_CAPACITY must be >= 8, "
+            f"got {cfg.entity_capacity}")
+    if cfg.entity_ttl_s <= 0:
+        raise ValueError(
+            f"HEATMAP_ENTITY_TTL_S must be > 0, got {cfg.entity_ttl_s}")
+    if cfg.entity_shards < 0:
+        raise ValueError(
+            f"HEATMAP_ENTITY_SHARDS must be >= 0 (0 = HEATMAP_SHARDS), "
+            f"got {cfg.entity_shards}")
+    if cfg.entity_stop_s <= 0:
+        raise ValueError(
+            f"HEATMAP_ENTITY_STOP_S must be > 0, "
+            f"got {cfg.entity_stop_s}")
     return cfg

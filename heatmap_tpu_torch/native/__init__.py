@@ -1,10 +1,11 @@
 """native — the host C++ codecs, loaded with ctypes.
 
 A copy of the parts of ``heatmap_tpu/native/__init__.py`` that the port's
-Kafka path and Mongo store use: the CRC32C and the record-batch framing of
-``kafka_codec.cpp``, the JSON-lines event decoder of ``decoder.cpp`` with
-its persistent intern tables, and the BSON update-op encoders of
-``tile_ops.cpp`` and ``positions_ops.cpp``.
+Kafka path, Mongo store and inference engine use: the CRC32C and the
+record-batch framing of ``kafka_codec.cpp``, the JSON-lines event decoder
+of ``decoder.cpp`` with its persistent intern tables, the BSON update-op
+encoders of ``tile_ops.cpp`` and ``positions_ops.cpp``, and the f64 H3
+snap of ``h3_snap.cpp`` (``NativeH3Snap``).
 
 The library is built with g++ at first use by ``heatmap_tpu_torch._build``
 (``load(NATIVE_LIB)``: ``build/heatmap_tpu_torch/native-<hash>.so``, the
@@ -29,6 +30,12 @@ _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+_SNAP_ARGS = [_f32p, _f32p, ctypes.c_int64, ctypes.c_int,
+              _f64p, _f64p, _f64p,
+              ctypes.c_double, ctypes.c_double, ctypes.c_double,
+              _i32p, _i32p, _i32p, _i32p, _i32p, _i32p, _i32p,
+              ctypes.c_int, _u32p, _u32p]
 
 _SIGNATURES = {
     "dec_new": ([], ctypes.c_void_p),
@@ -58,6 +65,10 @@ _SIGNATURES = {
     "enc_position_ops": ([_f32p, _f32p, _i64p, ctypes.c_int64, _u8p, _i64p,
                           _u8p, _i64p, _u8p, ctypes.c_int64, _i64p,
                           ctypes.POINTER(ctypes.c_int64)], ctypes.c_int64),
+    "h3_snap_f32": (_SNAP_ARGS, None),
+    # the scalar entry: the reference path the AVX-512 block path is held
+    # against
+    "h3_snap_f32_scalar": (_SNAP_ARGS, None),
 }
 
 
@@ -325,3 +336,77 @@ class NativePositionOps:
         out, _ = _encode_with_resize(
             call, n * self._DOC_BOUND + 3 * str_bytes + 1024, "position")
         return out[:int(nbytes.value)].tobytes(), offsets[:n].copy(), n
+
+
+class NativeH3Snap:
+    """C++ H3 forward snap over f32 arrays (h3_snap.cpp): computes in f64
+    internally, matching the host oracle's rounding rather than the f32
+    device snap (points within ~0.4 m of a cell edge at res 9 may differ
+    from the f32 snap; both are valid snaps).  The AVX-512 block path runs
+    when the CPU has avx512f and avx512dq (checked in the library at run
+    time), else the scalar path."""
+
+    def __init__(self):
+        import math
+
+        from heatmap_tpu_torch.hexgrid.constants import (
+            FACE_CENTER_XYZ,
+            M_AP7_ROT_RADS,
+            M_SQRT7,
+        )
+        from heatmap_tpu_torch.hexgrid.device import (
+            _DeviceTables,
+            _projection_bases,
+        )
+        from heatmap_tpu_torch.hexgrid.mathlib import (
+            _DOWN_AP7,
+            _DOWN_AP7R,
+            K_AXES_DIGIT,
+        )
+
+        self._lib = _lib()
+        u1, u2 = _projection_bases()
+        T = _DeviceTables()
+        self._face_xyz = np.ascontiguousarray(FACE_CENTER_XYZ, np.float64)
+        self._u1 = np.ascontiguousarray(u1, np.float64)
+        self._u2 = np.ascontiguousarray(u2, np.float64)
+        self._rot_cos = float(math.cos(M_AP7_ROT_RADS))
+        self._rot_sin = float(math.sin(M_AP7_ROT_RADS))
+        self._sqrt7 = float(M_SQRT7)
+        self._down_ap7 = np.ascontiguousarray(
+            np.asarray(_DOWN_AP7, np.int32).reshape(-1))
+        self._down_ap7r = np.ascontiguousarray(
+            np.asarray(_DOWN_AP7R, np.int32).reshape(-1))
+        self._bc = np.ascontiguousarray(T.face_ijk_bc)
+        self._rot = np.ascontiguousarray(T.face_ijk_rot)
+        self._pent = np.ascontiguousarray(T.bc_pent)
+        self._cw_off = np.ascontiguousarray(T.pent_cw_offset)
+        self._ccw_pow = np.ascontiguousarray(T.ccw_pow)
+        self._k_digit = int(K_AXES_DIGIT)
+
+    def snap(self, lat_rad, lng_rad, res: int, scalar: bool = False):
+        """(N,) f32 radians -> (hi, lo) uint32 arrays, res 0..10 (the
+        packed-digit-chain form).  ``scalar=True`` takes the scalar path
+        whatever the CPU has (for holding the block path against it)."""
+        if not 0 <= res <= 10:
+            raise ValueError(f"native snap supports res 0..10, got {res}")
+        lat = np.ascontiguousarray(lat_rad, np.float32).reshape(-1)
+        lng = np.ascontiguousarray(lng_rad, np.float32).reshape(-1)
+        if lng.shape[0] != lat.shape[0]:
+            # the C++ loop is sized from lat; a silent mismatch would
+            # read past the lng buffer
+            raise ValueError(f"lat/lng length mismatch: "
+                             f"{lat.shape[0]} vs {lng.shape[0]}")
+        n = lat.shape[0]
+        hi = np.empty(n, np.uint32)
+        lo = np.empty(n, np.uint32)
+        fn = (self._lib.h3_snap_f32_scalar if scalar
+              else self._lib.h3_snap_f32)
+        fn(lat, lng, n, res, self._face_xyz, self._u1, self._u2,
+           self._rot_cos, self._rot_sin, float(self._sqrt7 ** res),
+           self._down_ap7, self._down_ap7r, self._bc, self._rot,
+           self._pent, self._cw_off, self._ccw_pow, self._k_digit,
+           hi, lo)
+        shape = np.shape(lat_rad)
+        return hi.reshape(shape), lo.reshape(shape)
+

@@ -3,9 +3,11 @@
 
 Every commit writes a fresh ``commit-<epoch>/`` directory holding
 ``meta.json`` (source offset, watermark high-ts, epoch, shard count, the
-snap route that keyed the state) and one ``state-<res>-<win_s>.npz`` per
+snap route that keyed the state), one ``state-<res>-<win_s>.npz`` per
 (resolution, window) pair with the 13 ``TileState`` fields, key words as
-uint32: the layout the port's ``to_host`` gives and ``from_host`` takes.
+uint32 (the layout the port's ``to_host`` gives and ``from_host`` takes),
+and one ``extra-<name>.npz`` per named extras payload (the inference
+engine's entity table, ``extra-infer.npz``).
 The directory is written as ``commit-<epoch>.tmp`` and renamed whole, then
 the single ``LATEST`` pointer file is replaced atomically, so a crash at
 any point leaves ``LATEST`` naming a complete older commit: offsets and
@@ -100,11 +102,14 @@ class CheckpointManager:
     def commit(self, offset: Any, max_event_ts: int, epoch: int,
                states: dict[tuple[int, int], TileState] | None = None,
                shards: int | None = None,
-               snap_impl: str | None = None) -> None:
+               snap_impl: str | None = None,
+               extras: dict[str, dict] | None = None) -> None:
         """``states``: host states by (res, window_s).  ``shards``: the
         writer's shard-block count, so a restart can tell a capacity change
         (absorbable) from a shard-count change (refused).  ``snap_impl``:
-        the snap route that keyed the state."""
+        the snap route that keyed the state.  ``extras``: named auxiliary
+        payloads ({name: {key: array}}), reducer state that rides the same
+        atomic commit as the window state it must stay consistent with."""
         name = f"commit-{epoch:012d}"
         cdir = os.path.join(self.dir, name)
         tmp = cdir + ".tmp"
@@ -113,6 +118,9 @@ class CheckpointManager:
         for (res, win), st in (states or {}).items():
             np.savez(os.path.join(tmp, f"state-{res}-{win}.npz"),
                      **{k: np.asarray(v) for k, v in st._asdict().items()})
+        for ename, payload in (extras or {}).items():
+            np.savez(os.path.join(tmp, f"extra-{ename}.npz"),
+                     **{k: np.asarray(v) for k, v in payload.items()})
         meta = {"offset": offset, "max_event_ts": int(max_event_ts),
                 "epoch": int(epoch)}
         if shards is not None:

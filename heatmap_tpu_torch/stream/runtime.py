@@ -18,6 +18,16 @@ The counterpart of the single-device path of
   the writer drained (offsets never move past a write that has not
   landed), the copy to the host and the commit to disk.
 
+With ``HEATMAP_REDUCERS=count,kalman`` the inference engine
+(``infer.InferenceEngine``) folds each batch's host columns after the
+step's ring flush and before the fold's dispatch (the ``infer`` span): its
+rounds scan runs on a CUDA stream of the engine's own, so its wait for the
+outputs does not queue behind the fold.  Its anomalies are drained and
+dropped (the port has no view yet; the engine keeps their counts), its
+per-cell velocity field rides the tile docs of each flush as ``vxKmh`` /
+``vyKmh``, and its entity table commits with the window state as
+``extra-infer.npz``.  With ``count`` alone nothing of it is built.
+
 At each dispatch the positions fold (``_fold_positions``, numpy on the
 host, as in the reference) picks the newest event of each vehicle in the
 batch, keeps it only if it is newer than the last one emitted for that
@@ -67,7 +77,8 @@ from heatmap_tpu_torch.engine import step
 from heatmap_tpu_torch.engine.multi import MultiAggregator, stats_from_packed
 from heatmap_tpu_torch.engine.state import TileState, to_host
 from heatmap_tpu_torch.engine.step import FUTURE_WINDOWS, I32_MIN, EmitRing
-from heatmap_tpu_torch.sink.base import PositionRows, Store, TilePackMeta
+from heatmap_tpu_torch.sink.base import (PositionRows, Store, TilePackMeta,
+                                         packed_tile_docs)
 from heatmap_tpu_torch.sink.writer import AsyncWriter
 from heatmap_tpu_torch.stream.checkpoint import CheckpointManager
 from heatmap_tpu_torch.stream.events import EventColumns, parse_events
@@ -229,7 +240,8 @@ class MicroBatchRuntime:
         # positions (the positions fold and its hand-off to the writer),
         # prefetch (the next batch's poll and feed, after this dispatch),
         # checkpoint (the flush before it and the capture on this thread;
-        # 0 on most batches); fetch and decode
+        # 0 on most batches); infer (the Kalman reducer's fold of the
+        # batch, when HEATMAP_REDUCERS names kalman); fetch and decode
         # (inside the poll, from a source that reports them: a Kafka
         # source's broker round trips and value decode); and, when
         # time_device_fold is set on a CUDA run, the fold's device time
@@ -239,7 +251,8 @@ class MicroBatchRuntime:
         self.span_ms: dict[str, list[float]] = {
             k: [] for k in ("poll", "feed", "pull", "sink", "dispatch",
                             "predicate", "positions", "prefetch",
-                            "checkpoint", "fetch", "decode", "device_fold")}
+                            "checkpoint", "infer", "fetch", "decode",
+                            "device_fold")}
         # the last flush's batches: [([host matrix per pair], epoch)]
         self.last_flush: list = []
         self._fold_events: list = []  # CUDA event pairs not yet read
@@ -253,6 +266,14 @@ class MicroBatchRuntime:
         # demand; -2^62 = "never seen", below any valid epoch
         self._pos_ts = np.full(1024, -(2**62), np.int64)
         self._pos_win: np.ndarray | None = None  # the fold's scatter buffer
+        # the Kalman reducer, when HEATMAP_REDUCERS names it; with count
+        # alone nothing is built and the count path is what it was
+        self.infer = None
+        if "kalman" in cfg.reducers:
+            from heatmap_tpu_torch.infer import InferenceEngine
+
+            self.infer = InferenceEngine(cfg, device=self.device,
+                                         counters=self.counters)
         self._maybe_resume()
         # offsets as of the last DISPATCHED batch: checkpoints commit
         # these, so a batch polled but not dispatched always replays
@@ -308,6 +329,14 @@ class MicroBatchRuntime:
                         f"SPEED_HIST_BINS or clear {self.cfg.checkpoint_dir}"
                     ) from e2
             self.resume_s["restore"] += time.monotonic() - t1
+        if self.infer is not None:
+            # a commit written with kalman off has no extra: the engine
+            # starts cold and re-seeds from the replayed stream
+            data = self.ckpt.load_extra("infer")
+            if data is not None:
+                self.infer.restore(data, self._intern_v)
+                log.info("restored inference entity table: %d entities",
+                         self.infer.table.occupancy)
 
     def _restore_resized(self, view, st: TileState,
                          snap_shards: int | None) -> None:
@@ -339,6 +368,11 @@ class MicroBatchRuntime:
             ready.record()
         offset, epoch, max_ts = (self._offsets_dispatched, self.epoch,
                                  self.max_event_ts)
+        # the entity table is captured here, on the step thread: it must
+        # cover exactly the batches the offsets cover, and the next
+        # batch's fold would change it under the commit thread
+        extras = ({"infer": self.infer.snapshot()}
+                  if self.infer is not None else None)
         rec = {"epoch": epoch, "capture_ms": (time.monotonic() - t0) * 1e3}
         self.commits.append(rec)
 
@@ -357,7 +391,7 @@ class MicroBatchRuntime:
                     states = {k: to_host(s) for k, s in snaps.items()}
                 self.ckpt.commit(offset, max_ts, epoch, states,
                                  shards=self.multi.n_shards,
-                                 snap_impl=self.snap_impl)
+                                 snap_impl=self.snap_impl, extras=extras)
                 rec["background_s"] = time.monotonic() - t1
                 rec["bytes"] = _dir_bytes(self.ckpt._commit_dir(epoch))
                 self.counters["checkpoints"] += 1
@@ -641,6 +675,15 @@ class MicroBatchRuntime:
             pull_s, sink_s = self.flush_pending(reason)
             self._maybe_grow()
         cutoff = self._cutoff()
+        infer_s = None
+        if self.infer is not None:
+            # after the ring flush, before the dispatch, as in the
+            # reference: the flushed docs carry the velocity of the batches
+            # before this one
+            t_inf = time.monotonic()
+            self.infer.fold_batch(entry.cols)
+            self.infer.drain_anomalies()  # no view to publish them to yet
+            infer_s = time.monotonic() - t_inf
         t2 = time.monotonic()
         feed = entry.feed
         if entry.ready is not None:
@@ -700,6 +743,8 @@ class MicroBatchRuntime:
         for name in ("fetch", "decode"):
             if name in entry.spans:
                 self.span_ms[name].append(entry.spans[name] * 1e3)
+        if infer_s is not None:
+            self.span_ms["infer"].append(infer_s * 1e3)
         for name, dt in (("poll", entry.spans["poll"]),
                          ("feed", entry.spans["feed"]),
                          ("pull", pull_s), ("sink", sink_s),
@@ -722,7 +767,19 @@ class MicroBatchRuntime:
         body = packed_pair[1:]
         n_docs = int(np.count_nonzero(
             (body[:, 8] != 0) & (body[:, 3].view(np.int32) > 0)))
-        if n_docs:
+        vel = (self.infer.velocity_field(pair[0])
+               if n_docs and self.infer is not None else None)
+        if vel:
+            # the Kalman reducer's per-cell velocity rides the docs as two
+            # optional columns, rounded to 2 places as the reference does
+            docs = packed_tile_docs(body, self._pack_meta[pair])
+            for d in docs:
+                v = vel.get(int(d["cellId"], 16))
+                if v is not None:
+                    d["vxKmh"] = round(v[0], 2)
+                    d["vyKmh"] = round(v[1], 2)
+            self.writer.submit_tiles(docs)
+        elif n_docs:
             self.writer.submit_tiles_packed(body, self._pack_meta[pair])
         self.counters["tiles_emitted"] += n_docs
         if pair == self._primary:

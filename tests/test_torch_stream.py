@@ -448,7 +448,6 @@ def test_entry_point_default_pipeline_matches_jax(monkeypatch):
 @pytest.mark.parametrize("knob,on,off", [
     ("HEATMAP_SHARDS", "2", "1"),
     ("HEATMAP_SHARD_INDEX", "1", "0"),
-    ("HEATMAP_REDUCERS", "count,kalman", "count"),
     ("HEATMAP_GOVERN", "1", "0"),
     ("HEATMAP_AUDIT", "true", "false"),
     ("HEATMAP_QUALITY", "1", ""),
@@ -465,6 +464,16 @@ def test_unported_knob_raises_by_name(knob, on, off):
     assert "ROADMAP A" in str(e.value)
     load_config({knob: off})
     jax_load_config({knob: off})
+
+
+@pytest.mark.parametrize("spec", ["count", "count,kalman", "kalman,count",
+                                  " count , kalman , count "])
+def test_reducers_knob_is_honoured(spec):
+    """HEATMAP_REDUCERS loads in both packages to the same reducer set
+    (inference is ported, so the knob no longer raises)."""
+    want = jax_load_config({"HEATMAP_REDUCERS": spec}).reducers
+    assert load_config({"HEATMAP_REDUCERS": spec}).reducers == want
+    assert want[0] == "count"
 
 
 class _Clock:
