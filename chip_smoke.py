@@ -96,7 +96,35 @@ Phases, one JSON line each:
                 topic read at the default 4-MiB fetch, and each native
                 codec's host time on one 2^17 batch beside its Python
                 version.
-10. infer       synthetic_backfill's preset (2^19 batches, 20,000
+10. formats     mbta_default (res 8 x 5 min, batches of 2^17, memory
+                store) in every event format the reference takes, each
+                topic published by the port's KafkaPublisher into the
+                port's MockKafkaBroker (3 partitions) from the kafka
+                phase's 2^20 events: json (as there), binary (its rejects a
+                bad magic byte, a truncated value and lat 95, at the same 3
+                in 8,192 positions) and columnar (publish_columns, 16,384
+                events a value: 64 values round-robin; its rejects rows
+                with lat 95 or a timestamp out of range).  Each format runs
+                in process
+                and through the feeder process (HEATMAP_FEEDER=proc), and
+                json once more with HEATMAP_H3_IMPL=native.  Every run:
+                8 batches, the rejects dropped and no more, every value
+                decoded natively, one snap launch a batch (none on the
+                native route), its tile docs the json in-process run's
+                (ints exact; floats under docs_match's bar for json and
+                binary, which cut the same batches; a columnar poll takes
+                values until its valid rows fill the batch and the runtime
+                carries the rest, so its batches cut elsewhere and its
+                floats are held to the CPU tests' bars, docs_close, and the
+                feeder's columnar run to the in-process one under
+                docs_match's) and its positions_latest the same, the newest
+                event of each vehicle.  The native run's keys equal NativeH3Snap's on its
+                first batch bit for bit and the kernel's on >= 99.8% of its
+                events; its commit, resumed with HEATMAP_H3_IMPL unset,
+                keeps the host snap.  Then the host time of decode_binary
+                and colfmt decode_batch on one 2^17 batch beside
+                NativeDecoder.decode.
+11. infer       synthetic_backfill's preset (2^19 batches, 20,000
                 vehicles, res 9) with HEATMAP_REDUCERS=count,kalman.  The
                 rounds kernel (infer/csrc/kalman_rounds.cu) against its
                 plain version on the card, exact on every output, on the
@@ -1021,6 +1049,42 @@ def docs_match(a, b) -> float:
     return worst
 
 
+def docs_close(a, b, rel=1e-4, deg=1e-5) -> dict:
+    """Two stores' docs by ``_id`` where the batches were cut elsewhere:
+    the same ids and fields, every integer, string and time exact, speed
+    floats within ``rel`` relative (or 1e-4 km/h) and centroid coordinates
+    within ``deg`` degrees.  A batch's float32 sums round differently when
+    its rows differ, and a stddev's subtraction of two such sums magnifies
+    that; the exact float check of such a run is a fold of the same rows cut
+    the same way (replay_polls).  Returns the largest relative difference
+    of each float field; raises on any other difference."""
+    import math
+
+    if a.keys() != b.keys():
+        raise AssertionError(f"doc ids differ: {len(a.keys() ^ b.keys())}")
+    worst: dict = {}
+    for k, x in a.items():
+        y = b[k]
+        if x.keys() != y.keys():
+            raise AssertionError(f"{k}: fields differ")
+        for f, u in x.items():
+            v = y[f]
+            if f == "centroid":
+                if u["type"] != v["type"] or any(
+                        abs(p - q) > deg for p, q in zip(
+                            u["coordinates"], v["coordinates"])):
+                    raise AssertionError(f"{k} centroid: {u} != {v}")
+            elif isinstance(u, float) and isinstance(v, float):
+                if not math.isclose(u, v, rel_tol=rel, abs_tol=1e-4):
+                    raise AssertionError(f"{k} {f}: {u!r} != {v!r}")
+                if u != v:
+                    worst[f] = max(worst.get(f, 0.0),
+                                   abs(u - v) / max(abs(u), abs(v)))
+            elif u != v:
+                raise AssertionError(f"{k} {f}: {u!r} != {v!r}")
+    return worst
+
+
 def kafka_run_stats(m, wall, launches, peak_mem):
     """What the kafka phase prints for each run."""
     return {**run_stats(m, wall, launches, peak_mem),
@@ -1316,7 +1380,7 @@ def native_codec_times(keys, values, idx, cols, body):
     from heatmap_tpu_torch.kafka import records as rec
     from heatmap_tpu_torch.sink.base import TilePackMeta
     from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
-    from heatmap_tpu_torch.stream.source import _decode_json_values
+    from heatmap_tpu_torch.stream.source import _decode_raw_values
 
     def med(fn, reps=5):
         times = []
@@ -1346,7 +1410,7 @@ def native_codec_times(keys, values, idx, cols, body):
         "kafka_decode_values_ms": med(
             lambda: native.kafka_decode_values(blob, 0)),
         "native_decode_ms": med(lambda: dec.decode(joined, final=True)),
-        "python_decode_ms": med(lambda: _decode_json_values(
+        "python_decode_ms": med(lambda: _decode_raw_values(None,
             [values[i] for i in idx], {}, {}), reps=1),
         "enc_tile_ops_ms": med(lambda: tiles.encode(
             body, meta.city, meta.grid, meta.window_s, meta.ttl_minutes)),
@@ -1355,6 +1419,509 @@ def native_codec_times(keys, values, idx, cols, body):
 
 
 # the infer phase: synthetic_backfill's preset with the Kalman reducer
+FORMATS = ("json", "binary", "columnar")
+COL_VALUE_EVENTS = 16_384     # events a columnar value (publish_columns)
+FORMAT_TOPIC = "mobility.positions.{}"
+
+
+class _KeyRecorder:
+    """Stands in for the runtime's host snap and keeps each batch's
+    inputs and keys, so the native run's keys can be held against
+    NativeH3Snap and against the kernel on the same points."""
+
+    def __init__(self, snap):
+        self._snap = snap
+        self.calls = []
+
+    def snap(self, lat_rad, lng_rad, res):
+        hi, lo = self._snap.snap(lat_rad, lng_rad, res)
+        self.calls.append((np.array(lat_rad), np.array(lng_rad), res,
+                           hi.copy(), lo.copy()))
+        return hi, lo
+
+
+def format_records(events):
+    """Per format, the event dicts a publisher is handed, in produce order:
+    the kafka phase's JSON events (its rejects carry their raw value in
+    ``_value``: malformed JSON, undecodable bytes); for binary the same
+    events, the rejects at the same positions being a bad magic byte, a
+    truncated value and lat 95."""
+    from heatmap_tpu_torch.stream import binfmt
+
+    json_recs, bin_recs = [], []
+    good = next(e for e in events if "malformed" not in e)
+    for i, e in enumerate(events):
+        kind = i % 8192
+        veh = f"veh-{i % KAFKA_SOURCE['n_vehicles']}"
+        if "malformed" in e:
+            raw = (b'{"provider": "mbta", "lat": ' if kind == 100
+                   else b"\xff\xfe")
+            json_recs.append({"vehicleId": veh, "_value": raw})
+            v = binfmt.encode_event({**good, "vehicleId": veh})
+            bin_recs.append({"vehicleId": veh, "_value": (
+                b"\x00" + v[1:] if kind == 100 else v[:-5])})
+        else:
+            json_recs.append(e)
+            bin_recs.append(e)
+    return json_recs, bin_recs
+
+
+def publish_events(pub, recs, encode):
+    """``recs`` through a KafkaPublisher in chunks of 4,096 events, one
+    flush each, as a poller publishes.  The publisher's encoder is wrapped
+    so that a reject is sent as its raw ``_value``, a value no publisher
+    writes."""
+    pub._encode_value = lambda e: e["_value"] if "_value" in e else \
+        encode(e)
+    for j in range(0, len(recs), 4096):
+        pub.publish(recs[j:j + 4096])
+        pub.flush()
+
+
+def columnar_columns(cols):
+    """The kafka phase's events as EventColumns for publish_columns, in
+    produce order; its rejects become rows the decode drops: the malformed
+    values a timestamp out of range, the latitude reject lat 95."""
+    from heatmap_tpu_torch.stream.events import columns_from_arrays
+
+    rows = np.arange(len(cols))
+    lat = cols.lat_deg.copy()
+    ts = cols.ts_s.astype(np.int32)
+    kinds = rows % 8192
+    lat[kinds == 300] = 95.0
+    ts[(kinds == 100) | (kinds == 200)] = -1
+    return columns_from_arrays(
+        lat, cols.lng_deg, cols.speed_kmh, ts,
+        provider_id=np.zeros(len(rows), np.int32),
+        vehicle_id=cols.vehicle_id,
+        providers=["mbta"],
+        vehicles=[f"veh-{i}" for i in range(KAFKA_SOURCE["n_vehicles"])])
+
+
+def _kept(polls, cols):
+    polls.append(cols)
+    return cols
+
+
+def replay_polls(json_polls, col_polls):
+    """A source that returns, poll by poll, the json run's decoded rows of
+    the events each columnar poll returned (and its drop count), after
+    holding each columnar row bit for bit to the json decode of its
+    event: lat/lng in degrees and radians, speed, ts, vehicle."""
+    from heatmap_tpu_torch.stream.events import EventColumns
+    from heatmap_tpu_torch.stream.source import MemorySource
+
+    lanes = ("lat_rad", "lng_rad", "lat_deg", "lng_deg", "speed_kmh", "ts_s")
+    js = [c for c in json_polls if len(c)]
+    names = js[-1].vehicles
+    j = {f: np.concatenate([getattr(c, f) for c in js]) for f in lanes}
+    jv = np.concatenate([c.vehicle_id for c in js])
+    jp = np.concatenate([c.provider_id for c in js])
+    at = {(names[v], int(t)): i for i, (v, t) in enumerate(zip(jv, j["ts_s"]))}
+    if len(at) != len(jv):
+        raise AssertionError("formats: (vehicle, ts) does not name an event")
+    out, rows = [], 0
+    for c in col_polls:
+        if not isinstance(c, EventColumns):
+            continue
+        idx = np.array([at[(c.vehicles[v], int(t))]
+                        for v, t in zip(c.vehicle_id, c.ts_s)], np.int64)
+        for f in lanes:
+            if getattr(c, f).tobytes() != j[f][idx].tobytes():
+                raise AssertionError(f"formats: columnar {f} differs from "
+                                     f"the json decode of the same events")
+        rows += len(idx)
+        out.append(EventColumns(**{f: j[f][idx] for f in lanes},
+                                provider_id=jp[idx], vehicle_id=jv[idx],
+                                providers=js[-1].providers, vehicles=names,
+                                n_dropped=c.n_dropped))
+    if rows != len(jv):
+        raise AssertionError(f"formats: columnar polls returned {rows} rows,"
+                             f" the json run {len(jv)}")
+
+    class Replay(MemorySource):
+        def poll(self, max_events):
+            return self._q.popleft() if self._q else []
+
+    src = Replay(out)
+    src.finish()
+    return src
+
+
+def format_run_stats(m, wall, launches):
+    spans = {k: v for k, v in m["p50_span_ms"].items() if v is not None}
+    return {"events": m["events_valid"], "dropped": m["events_invalid"],
+            "batches": m["batches"], "wall_s": wall,
+            "events_per_s": m["events_valid"] / wall,
+            "p50_batch_ms": m["p50_batch_ms"], "p50_span_ms": spans,
+            "snap_launches": launches,
+            "values_decoded": {k: m[f"values_decoded_{k}"]
+                               for k in ("native", "python")}}
+
+
+def decode_times(values, bin_recs, order, col_values, batch):
+    """Host ms of one 2^17 batch's decode in each format (median of 5):
+    NativeDecoder.decode of the joined JSON values, decode_binary of the
+    length-prefixed binary values, colfmt decode_batch of the batch's
+    columnar values (with the intern tables and LUT memo warm, as a
+    source holds them; and cold, with the native and the Python
+    string-table parse), beside the Python binary path
+    (binfmt.decode_events + parse_events, once)."""
+    from heatmap_tpu_torch import native
+    from heatmap_tpu_torch.stream import binfmt, colfmt
+    from heatmap_tpu_torch.stream.events import parse_events
+
+    def med(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    idx = order[:batch]
+    joined = b"\n".join(values[i] for i in idx) + b"\n"
+    bin_values = [bin_recs[i]["_value"] if "_value" in bin_recs[i]
+                  else binfmt.encode_event(bin_recs[i]) for i in idx]
+    framed = binfmt.frame_lp(bin_values)
+    dec = native.NativeDecoder()
+
+    def columnar(native_strtab, warm=None):
+        ip, iv, cache = warm if warm is not None else ({}, {}, {})
+        for v in col_values:
+            colfmt.decode_batch(v, ip, iv, cache, native=native_strtab)
+
+    # warm: the intern tables and LUT memo a source keeps across polls,
+    # with this vehicle set already seen (its steady state)
+    steady = ({}, {}, {})
+    columnar(True, steady)
+
+    def binary_python():
+        dicts, _ = binfmt.decode_events(bin_values)
+        parse_events(dicts, {}, {})
+
+    out = {"json_native_decode_ms": med(lambda: dec.decode(joined,
+                                                           final=True)),
+           "binary_decode_binary_ms": med(lambda: dec.decode_binary(framed)),
+           "columnar_decode_batch_ms": med(lambda: columnar(True, steady)),
+           "columnar_decode_batch_cold_ms": med(lambda: columnar(True)),
+           "columnar_decode_batch_python_strtab_cold_ms": med(
+               lambda: columnar(False)),
+           "binary_python_ms": med(binary_python, reps=1),
+           "columnar_values": len(col_values),
+           "json_bytes": len(joined), "binary_bytes": len(framed),
+           "columnar_bytes": sum(len(v) for v in col_values)}
+    dec.close()
+    return out
+
+
+def phase_formats(torch, run_pipeline, snap_kernel, ckpt_root, dev):
+    """mbta_default through each event format the reference takes (json,
+    binary, columnar), published by the port's KafkaPublisher, each in
+    process and through the feeder process (HEATMAP_FEEDER=proc), plus one
+    JSON run keyed by the host snap (HEATMAP_H3_IMPL=native)."""
+    os.environ["HEATMAP_FETCH_MAX_BYTES"] = str(256 << 20)
+    try:
+        return _format_runs(torch, run_pipeline, snap_kernel, ckpt_root,
+                            dev)
+    finally:
+        for k in ("HEATMAP_FETCH_MAX_BYTES", "HEATMAP_EVENT_FORMAT",
+                  "HEATMAP_FEEDER", "HEATMAP_H3_IMPL"):
+            os.environ.pop(k, None)
+
+
+def _format_runs(torch, run_pipeline, snap_kernel, ckpt_root, dev):
+    from heatmap_tpu_torch.kafka import KafkaClient
+    from heatmap_tpu_torch.kafka.client import LATEST, partition_for_key
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.native import NativeH3Snap
+    from heatmap_tpu_torch.producers.base import KafkaPublisher
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream import binfmt
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+    from heatmap_tpu_torch.stream.shmfeed import ShmFeederSource
+    from heatmap_tpu_torch.stream.source import KafkaSource, SyntheticSource
+    from heatmap_tpu_torch.testing.mock_kafka import MockKafkaBroker
+
+    name = "mbta_default"
+    p = get_pipeline(name)
+    batch = p.config.batch_size
+    n_batches = KAFKA_EVENTS // batch
+    n_values = KAFKA_EVENTS // COL_VALUE_EVENTS
+    t0 = time.monotonic()
+    keys, values, events = kafka_events()
+    cols = SyntheticSource(n_events=KAFKA_EVENTS, **KAFKA_SOURCE).poll(
+        KAFKA_EVENTS)
+    json_recs, bin_recs = format_records(events)
+    n_bad = sum(1 for e in events if "malformed" in e or e["lat"] > 90)
+    n_valid = len(events) - n_bad
+    by_part = {0: [], 1: [], 2: []}
+    for i, k in enumerate(keys):
+        by_part[partition_for_key(k, 3)].append(i)
+    order = kafka_poll_order(by_part, batch, n_batches)
+    col_cols = columnar_columns(cols)
+    out = {"phase": "formats", "records": len(events), "rejects": n_bad,
+           "partitions": 3, "batches": n_batches,
+           "columnar_values": n_values,
+           "generate_s": time.monotonic() - t0}
+    publish_s = {}
+    runs, contents = {}, {}
+    with MockKafkaBroker(num_partitions=3) as bootstrap:
+        topics = {f: FORMAT_TOPIC.format(f) for f in FORMATS}
+        for fmt in FORMATS:
+            t0 = time.monotonic()
+            pub = KafkaPublisher(bootstrap, topics[fmt], event_format=fmt)
+            if fmt == "json":
+                publish_events(pub, json_recs,
+                               lambda e: json.dumps(e).encode("utf-8"))
+            elif fmt == "binary":
+                publish_events(pub, bin_recs, binfmt.encode_event)
+            elif pub.publish_columns(col_cols) != KAFKA_EVENTS:
+                raise AssertionError("formats: publish_columns fell short")
+            pub.close()
+            publish_s[fmt] = time.monotonic() - t0
+        out["publish_s"] = publish_s
+        # the topics as the sources will read them: the same record at each
+        # (partition, offset) in json and binary, the same batches in all
+        client = KafkaClient(bootstrap)
+        ends = {f: client.list_offsets(topics[f], LATEST) for f in FORMATS}
+        client.close()
+        if not (ends["json"] == ends["binary"]
+                == {k: len(v) for k, v in by_part.items()}):
+            raise AssertionError(f"formats: topics not keyed as the kafka "
+                                 f"phase's: {ends}")
+
+        # the mock broker encodes a fetched segment once and keeps it: a
+        # first reader of a topic pays that encode (the kafka phase's first
+        # run does), so each topic is read once, as the runs read it,
+        # before any timed run
+        warm_s = {}
+        for fmt in FORMATS:
+            t0 = time.monotonic()
+            os.environ["HEATMAP_EVENT_FORMAT"] = fmt
+            src = KafkaSource(bootstrap, topics[fmt])
+            src.seek({0: 0, 1: 0, 2: 0})
+            for _ in range(4 * n_batches):
+                if sum(src.offset().values()) >= sum(ends[fmt].values()):
+                    break
+                src.poll(batch)
+            src.close()
+            warm_s[fmt] = time.monotonic() - t0
+        out["warm_read_s"] = warm_s
+        polls = {}
+
+        def run(label, fmt, feeder, h3_impl=None, ckpt_every=4):
+            os.environ["HEATMAP_EVENT_FORMAT"] = fmt
+            os.environ.pop("HEATMAP_FEEDER", None)
+            os.environ.pop("HEATMAP_H3_IMPL", None)
+            if feeder:
+                os.environ["HEATMAP_FEEDER"] = "proc"
+            if h3_impl:
+                os.environ["HEATMAP_H3_IMPL"] = h3_impl
+            cfg = dataclasses.replace(
+                p.config, kafka_bootstrap=bootstrap,
+                kafka_topic=topics[fmt],
+                checkpoint_dir=f"{ckpt_root}/formats-{label}")
+            src = p.make_source(cfg)
+            want = ShmFeederSource if feeder else KafkaSource
+            if type(src) is not want:
+                raise AssertionError(f"formats {label}: {type(src)}")
+            src.seek({0: 0, 1: 0, 2: 0})       # the topic from its start
+            if label in ("json", "columnar"):
+                # keep what each poll returned, for the columnar check
+                polls[label] = []
+                poll = src.poll
+                src.poll = lambda n: _kept(polls[label], poll(n))
+            store = MemoryStore()
+            torch.cuda.synchronize()
+            snap_kernel.latlng_to_cell_kernel.launches = 0
+            t0 = time.monotonic()
+            rt = MicroBatchRuntime(cfg, src, store, checkpoint_every=ckpt_every)
+            recorder = None
+            if h3_impl == "native":
+                if rt.snap_impl != "native":
+                    raise AssertionError("formats: HEATMAP_H3_IMPL=native "
+                                         "did not take the host snap")
+                recorder = rt._host_snap = _KeyRecorder(rt._host_snap)
+            # until the topic is read and nothing is carried or prefetched
+            # (a columnar run folds more batches than 8: see below)
+            end = sum(ends[fmt].values())
+            for _ in range(4 * n_batches):
+                if (sum(src.offset().values()) >= end and not rt._prefetched
+                        and rt._carry_cols is None and rt.epoch):
+                    break
+                rt.step_once()
+            rt.close()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = snap_kernel.latlng_to_cell_kernel.launches
+            m = rt.metrics
+            stats = format_run_stats(m, wall, launches)
+            if feeder:
+                stats["feeder_wait_ms_p50"] = m["p50_span_ms"]["wait"]
+            tiles, positions = store_contents(store)
+            want_launches = 0 if h3_impl == "native" else m["batches"]
+            if launches != want_launches:
+                raise AssertionError(f"formats {label}: {launches} snap "
+                                     f"launches in {m['batches']} batches, "
+                                     f"want {want_launches}")
+            want_batches = (m["batches"] >= n_batches if fmt == "columnar"
+                            else m["batches"] == n_batches)
+            if not want_batches or m["events_valid"] != n_valid \
+                    or m["events_invalid"] != n_bad or m["state_overflow"]:
+                raise AssertionError(
+                    f"formats {label}: {m['batches']} batches, "
+                    f"{m['events_valid']} valid of {n_valid}, "
+                    f"{m['events_invalid']} dropped of {n_bad} rejects, "
+                    f"overflow {m['state_overflow']}")
+            if m["values_decoded_python"] or m["values_decoded_native"] == 0:
+                raise AssertionError(f"formats {label}: not every value "
+                                     f"decoded natively: {m}")
+            if sum(d["count"] for d in tiles.values()) != n_valid:
+                raise AssertionError(f"formats {label}: counts not "
+                                     f"conserved")
+            runs[label] = {"format": fmt, "feeder": feeder,
+                           "snap": rt.snap_impl, **stats,
+                           "tiles": len(tiles), "positions": len(positions)}
+            emit({"phase": "formats_run", "run": label, **runs[label]})
+            contents[label] = (tiles, positions)
+            return rt, recorder
+
+        run("json", "json", False)
+        for fmt in FORMATS:
+            if fmt != "json":
+                run(fmt, fmt, False)
+            run(f"{fmt}_proc", fmt, True)
+        rt, recorder = run("json_native", "json", False, h3_impl="native")
+        ckpt_dir = rt.cfg.checkpoint_dir
+        del rt
+        os.environ.pop("HEATMAP_H3_IMPL")   # auto from here: the kernel
+
+        # every run's docs and positions are the json in-process run's.
+        # json and binary values are counted alike, so their runs cut the
+        # same batches: docs under docs_match's bar.  A columnar poll takes
+        # whole values until its valid rows fill the batch and the runtime
+        # carries the rest, so its batches cut elsewhere, and a batch's
+        # float32 sums round differently when its rows differ (~1e-8
+        # relative).  The comparison stays exact in three steps: every
+        # row a columnar poll returned is, bit for bit, the json run's
+        # decode of the same event (vehicle and second identify it); the
+        # json run's rows, polled as the columnar run polled, fold to the
+        # columnar run's docs under docs_match's bar; and the columnar
+        # docs' integers, cells and windows are the json run's exactly
+        # (docs_close, which holds their floats to the CPU tests' bars).
+        # The feeder's columnar run cuts as the in-process one: docs_match.
+        tiles, positions = contents["json"]
+        replay = replay_polls(polls["json"], polls["columnar"])
+        rrt = MicroBatchRuntime(dataclasses.replace(
+            p.config, checkpoint_dir=f"{ckpt_root}/formats-replay"),
+            replay, MemoryStore(), checkpoint_every=4)
+        rrt.run()
+        replay_docs = store_contents(rrt.store)
+        del rrt
+        worst = {}
+        for label, (t, pos) in contents.items():
+            if label == "json_native":
+                continue
+            if label == "columnar":
+                worst[label] = docs_match(t, replay_docs[0])
+                worst["columnar_vs_json"] = docs_close(t, tiles)
+            elif label == "columnar_proc":
+                worst[label] = docs_match(t, contents["columnar"][0])
+            else:
+                worst[label] = docs_match(t, tiles)
+            if pos != positions or (label == "columnar"
+                                    and replay_docs[1] != pos):
+                raise AssertionError(f"formats {label}: positions_latest "
+                                     f"differs from the json run's")
+        newest = newest_positions(events)
+        got = {d["vehicleId"]: (int(d["ts"].timestamp()),
+                                *(float(c) for c in reversed(
+                                    d["loc"]["coordinates"])))
+               for d in positions.values()}
+        if got != newest:
+            raise AssertionError("formats: positions_latest is not the "
+                                 "newest event of each vehicle")
+
+        # the native run: its keys NativeH3Snap's bit for bit on its first
+        # batch, the kernel's on >= 99.8% of its events (the reference's bar
+        # between its snaps), and its docs the same events
+        first = KafkaSource(bootstrap, topics["json"])
+        first.seek({0: 0, 1: 0, 2: 0})
+        first_cols = first.poll(batch)
+        first.close()
+        lat0, lng0, res, hi0, lo0 = recorder.calls[0]
+        want_hi, want_lo = NativeH3Snap().snap(first_cols.lat_rad,
+                                               first_cols.lng_rad, res)
+        if (len(recorder.calls) != n_batches
+                or lat0.tobytes() != first_cols.lat_rad.tobytes()
+                or hi0.tobytes() != want_hi.tobytes()
+                or lo0.tobytes() != want_lo.tobytes()):
+            raise AssertionError("formats: the native run's first-batch keys "
+                                 "are not NativeH3Snap's")
+        same = total = 0
+        for lat, lng, res, hi, lo in recorder.calls:
+            khi, klo = snap_kernel.latlng_to_cell_kernel(
+                torch.from_numpy(lat).to(dev), torch.from_numpy(lng).to(dev),
+                res)
+            same += int(np.count_nonzero(
+                (khi.cpu().numpy().view(np.uint32) == hi)
+                & (klo.cpu().numpy().view(np.uint32) == lo)))
+            total += len(lat)
+        agree = same / total
+        ntiles, npositions = contents["json_native"]
+        key = lambda d: (d["cellId"], d["windowStart"])
+        cells_k = {key(d) for d in tiles.values()}
+        cells_n = {key(d) for d in ntiles.values()}
+        cell_share = len(cells_k & cells_n) / len(cells_k | cells_n)
+        if agree < 0.998 or npositions != positions:
+            raise AssertionError(f"formats: native vs kernel keys agree on "
+                                 f"{agree} of events (bar 0.998), or the "
+                                 f"positions differ")
+
+        # its commit, resumed with HEATMAP_H3_IMPL unset (auto: the kernel
+        # on the card), keeps the host snap
+        os.environ["HEATMAP_EVENT_FORMAT"] = "json"
+        resumed = MicroBatchRuntime(
+            dataclasses.replace(p.config, kafka_bootstrap=bootstrap,
+                                kafka_topic=topics["json"],
+                                checkpoint_dir=ckpt_dir),
+            KafkaSource(bootstrap, topics["json"]), MemoryStore(),
+            checkpoint_every=0)
+        pinned = resumed.snap_impl
+        resumed_epoch = resumed.epoch
+        resumed.close()
+        if pinned != "native" or resumed_epoch != n_batches:
+            raise AssertionError(f"formats: the native commit resumed with "
+                                 f"the knob unset took {pinned!r} at epoch "
+                                 f"{resumed_epoch}")
+        col_values = _read_values(bootstrap, topics["columnar"],
+                                  batch // COL_VALUE_EVENTS)
+    torch.cuda.empty_cache()
+    out.update(runs={k: {f: r[f] for f in (
+        "format", "feeder", "snap", "events_per_s", "wall_s", "p50_batch_ms",
+        "p50_span_ms", "snap_launches")} for k, r in runs.items()},
+        docs_equal_json_run=True, docs_float_max_rel_diff=worst,
+        positions_equal=True, native_first_batch_keys_identical=True,
+        native_vs_kernel_event_agreement=agree,
+        native_vs_kernel_cell_window_jaccard=cell_share,
+        native_commit_pinned=pinned,
+        decode_ms=decode_times(values, bin_recs, order, col_values, batch))
+    emit(out)
+    return out
+
+
+def _read_values(bootstrap, topic, n):
+    """The first ``n`` record values of a topic, in the order the columnar
+    source reads them (its first poll: partition 0's first values)."""
+    from heatmap_tpu_torch.kafka import KafkaClient
+
+    c = KafkaClient(bootstrap)
+    fr = c.fetch(topic, 0, 0, max_bytes=256 << 20, max_wait_ms=0)
+    c.close()
+    return [r.value for r in fr.records[:n]]
+
+
 INFER_BATCHES = 16
 INFER_TABLE = (8, 1 << 17)     # (K, M) of the full-table round set
 # the filter's constants, as infer/engine.py passes them
@@ -1656,6 +2223,8 @@ def main() -> int:
         opensky = phase_opensky(torch, run_pipeline, snap_kernel,
                                 f"{ckpt_root}/opensky", dev)
         kafka = phase_kafka(torch, run_pipeline, snap_kernel, ckpt_root, dev)
+        formats = phase_formats(torch, run_pipeline, snap_kernel, ckpt_root,
+                                dev)
         infer = phase_infer(torch, run_pipeline, snap_kernel, ckpt_root, dev)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -1679,6 +2248,8 @@ def main() -> int:
             k: v["snap_launches"] for k, v in pipes["presets"].items()},
         "launches_opensky_phase": opensky["snap_launches"],
         "launches_kafka_phase": kafka["snap_launches"],
+        "launches_formats_phase": {
+            k: v["snap_launches"] for k, v in formats["runs"].items()},
         "launches_infer_phase": infer["snap_launches"],
         "max_abs_err": main_err,
         "identical_share": main_share,

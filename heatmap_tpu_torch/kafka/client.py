@@ -433,25 +433,21 @@ class KafkaClient:
     def fetch_values(self, topic: str, partition: int, offset: int,
                      max_bytes: int = 1 << 20, max_wait_ms: int = 100,
                      framing: str = "newline"):
-        """Fetch + decode straight to a newline-joined values blob via the
-        C++ batch decoder (native.kafka_decode_values), the consumer hot
-        path, skipping per-record Python entirely.  Returns
-        (high_watermark, KafkaValues) or, when the native framing refuses
-        this blob (malformed varints, newline-bearing values),
-        (high_watermark, FetchResult) from the Python decoder, as the
-        reference does.  Only ``framing="newline"`` (JSON values) is
-        ported."""
+        """Fetch + decode straight to a joined values blob via the C++
+        batch decoder (native.kafka_decode_values), the consumer hot path,
+        skipping per-record Python entirely.  ``framing``: "newline" for
+        JSON values, "lp" (u32 length prefixes) for binary event values.
+        Returns (high_watermark, KafkaValues) or, when the native framing
+        refuses this blob (malformed varints, newline-bearing values under
+        newline framing), (high_watermark, FetchResult) from the Python
+        decoder, as the reference does."""
         from heatmap_tpu_torch.native import kafka_decode_values
 
-        if framing != "newline":
-            raise NotImplementedError(
-                f"framing={framing!r}: only newline framing (JSON values) "
-                f"is ported to heatmap_tpu_torch")
         hw, blob = self._with_retry(
             topic, partition,
             lambda c: c.fetch(topic, partition, offset, max_bytes,
                               max_wait_ms))
-        kv = kafka_decode_values(blob, offset)
+        kv = kafka_decode_values(blob, offset, framing=framing)
         if kv is not None:
             kv.next_offset = max(kv.next_offset, offset)
             return hw, kv

@@ -35,22 +35,27 @@ def _kafka_or_synthetic(cfg: Config) -> Source:
     (the reference contract); otherwise fall back to synthetic data so the
     pipeline still runs hermetically, as the reference does.
 
-    ``HEATMAP_FEEDER=proc`` (the reference's shared-memory feeder process)
-    is not ported and raises, as do the unported consumer impls and event
-    formats (``KafkaSource``) and a native codec that cannot be built:
-    none of them falls back."""
-    if os.environ.get("HEATMAP_FEEDER") == "proc":
-        raise NotImplementedError(
-            "HEATMAP_FEEDER=proc: the shared-memory feeder process is not "
-            "ported to heatmap_tpu_torch; unset it to consume in-process")
+    ``HEATMAP_FEEDER=proc`` moves the fetch and decode into a process of
+    their own over a shared-memory ring (``stream.shmfeed``), as in the
+    reference; the broker is probed in-process before the feeder is
+    spawned, so the synthetic fallback engages promptly.  The unported
+    consumer impls (``KafkaSource``), a native codec that cannot be built
+    and a feeder that cannot start raise: none of them falls back."""
     try:
-        return KafkaSource(cfg.kafka_bootstrap, cfg.kafka_topic)
+        src = KafkaSource(cfg.kafka_bootstrap, cfg.kafka_topic)
     except (NotImplementedError, KernelBuildError):
         raise
     except (ImportError, ConnectionError, OSError, RuntimeError) as e:
         # RuntimeError covers KafkaError (unknown topic / leaderless)
         log.warning("kafka unreachable (%s); using synthetic source", e)
         return SyntheticSource(n_vehicles=1000, events_per_second=1000)
+    if os.environ.get("HEATMAP_FEEDER") == "proc":
+        from heatmap_tpu_torch.stream.shmfeed import ShmFeederSource
+
+        src.close()
+        return ShmFeederSource(cfg.kafka_bootstrap, cfg.kafka_topic,
+                               batch_size=cfg.batch_size)
+    return src
 
 
 def _synthetic_backfill(cfg: Config) -> Source:

@@ -1,19 +1,25 @@
 """native — the host C++ codecs, loaded with ctypes.
 
 A copy of the parts of ``heatmap_tpu/native/__init__.py`` that the port's
-Kafka path, Mongo store and inference engine use: the CRC32C and the
-record-batch framing of ``kafka_codec.cpp``, the JSON-lines event decoder
-of ``decoder.cpp`` with its persistent intern tables, the BSON update-op
-encoders of ``tile_ops.cpp`` and ``positions_ops.cpp``, and the f64 H3
-snap of ``h3_snap.cpp`` (``NativeH3Snap``).
+Kafka path, Mongo store, inference engine and host snap route use: the
+CRC32C and the record-batch framing of ``kafka_codec.cpp`` (newline-joined
+JSON values, or u32-length-prefixed binary event values), the event
+decoder of ``decoder.cpp`` with its persistent intern tables (JSON lines,
+``decode``; the binary event layout of ``stream/binfmt.py``,
+``decode_binary``) and its columnar string-table parser
+(``strtab_offsets_native``), the BSON update-op encoders of
+``tile_ops.cpp`` and ``positions_ops.cpp``, and the f64 H3 snap of
+``h3_snap.cpp`` (``NativeH3Snap``).
 
 The library is built with g++ at first use by ``heatmap_tpu_torch._build``
 (``load(NATIVE_LIB)``: ``build/heatmap_tpu_torch/native-<hash>.so``, the
 reference's flags).  Unlike the reference there is no fallback: a missing
 g++ or a failed compile raises ``KernelBuildError`` from the first call.
 The Python codecs stay beside these as their plain versions
-(``kafka.records.crc32c_plain``, ``stream.source._decode_json_values``,
-``sink.base.Store``'s Python doc paths), reached only when a caller asks.
+(``kafka.records.crc32c_plain``, ``stream.source._decode_raw_values``,
+``stream.binfmt.decode_events``, ``stream.colfmt``'s Python string-table
+parse, ``sink.base.Store``'s Python doc paths), reached only when a caller
+asks.
 """
 
 from __future__ import annotations
@@ -51,6 +57,12 @@ _SIGNATURES = {
                     ctypes.c_int64, _f32p, _f32p, _f32p, _i32p, _i32p,
                     _i32p, ctypes.POINTER(ctypes.c_int64),
                     ctypes.POINTER(ctypes.c_int64)], ctypes.c_int64),
+    "dec_decode_binary": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+                           ctypes.c_int64, _f32p, _f32p, _f32p, _i32p, _i32p,
+                           _i32p, ctypes.POINTER(ctypes.c_int64),
+                           ctypes.POINTER(ctypes.c_int64)], ctypes.c_int64),
+    "cf_strtab_offsets": ([ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+                           _i32p, _i32p], ctypes.c_int),
     "enc_tile_ops": ([_u32p, ctypes.c_int64, ctypes.c_char_p,
                       ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
                       ctypes.c_int32, ctypes.c_int32, _u8p, ctypes.c_int64,
@@ -90,10 +102,30 @@ def crc32c_native(data: bytes, crc: int = 0) -> int:
     return int(_lib().kc_crc32c(data, len(data), crc))
 
 
+def strtab_offsets_native(blob: bytes, n: int):
+    """(offsets, lengths) int32 arrays for a colfmt strtab blob, parsed in
+    C++ (decoder.cpp cf_strtab_offsets).  ValueError when an entry runs
+    past the blob (the rejection the Python parse performs)."""
+    lib = _lib()
+    # bound BEFORE allocating: n is an unvalidated u32 from the record
+    # header, and every entry needs at least its 2 length bytes, so a
+    # corrupt record claiming n=0xFFFFFFFF is a cheap reject, not a pair
+    # of giant allocations
+    if n < 0 or 2 * n > len(blob):
+        raise ValueError("strtab count exceeds blob")
+    offs = np.empty(n, np.int32)
+    lens = np.empty(n, np.int32)
+    if lib.cf_strtab_offsets(blob, len(blob), n, offs, lens) != 0:
+        raise ValueError("malformed strtab blob")
+    return offs, lens
+
+
 class KafkaValues:
-    """Result of kafka_decode_values: record values joined as newline-
-    terminated lines, plus the bookkeeping the consumer's partial-take
-    logic needs (each value's record offset and its start in ``blob``)."""
+    """Result of kafka_decode_values: record values joined under the
+    requested framing (newline-terminated lines for JSON values, u32
+    length prefixes for binary event values), plus the bookkeeping the
+    consumer's partial-take logic needs (each value's record offset and
+    its start in ``blob``)."""
 
     __slots__ = ("blob", "val_off", "val_pos", "next_offset",
                  "skipped_batches", "n_null")
@@ -112,22 +144,28 @@ class KafkaValues:
 
 
 def kafka_decode_values(blob: bytes, start_offset: int,
-                        verify_crc: bool = True) -> "KafkaValues | None":
-    """Decode a Fetch records blob straight to a newline-joined values
-    buffer (kafka_codec.cpp).  None when the blob's varints are malformed
-    or a value contains raw newlines: the caller then takes the Python
-    record path for that blob (kafka.records.decode_batches_tolerant), as
-    the reference does."""
+                        verify_crc: bool = True,
+                        framing: str = "newline") -> "KafkaValues | None":
+    """Decode a Fetch records blob straight to a joined values buffer
+    (kafka_codec.cpp): ``framing="newline"`` for JSON values, ``"lp"`` for
+    u32-length-prefixed binary event values (stream/binfmt.py).  None when
+    the blob's varints are malformed or (newline framing only) a value
+    contains raw newlines: the caller then takes the Python record path
+    for that blob (kafka.records.decode_batches_tolerant), as the
+    reference does."""
+    if framing not in ("newline", "lp"):
+        raise ValueError(f"framing must be newline|lp, got {framing!r}")
     lib = _lib()
+    lp = framing == "lp"
     n = len(blob)
     cap_vals = n // 6 + 8
-    out = np.empty(n + cap_vals + 16, np.uint8)
+    out = np.empty(n + cap_vals * (4 if lp else 1) + 16, np.uint8)
     val_off = np.empty(cap_vals, np.int64)
     val_pos = np.empty(cap_vals, np.int64)
     state = np.zeros(5, np.int64)
-    nv = lib.kc_decode_values(blob, n, start_offset, int(verify_crc), 0,
-                              out, len(out), val_off, val_pos, cap_vals,
-                              state)
+    nv = lib.kc_decode_values(blob, n, start_offset, int(verify_crc),
+                              int(lp), out, len(out), val_off, val_pos,
+                              cap_vals, state)
     if nv < 0 or state[3] > 0:  # malformed varints / newline-bearing values
         return None
     nv = int(nv)
@@ -241,6 +279,36 @@ class NativeDecoder:
         )
         cols.n_dropped = int(dropped.value)
         return cols, min(int(consumed.value), orig_len)
+
+    def decode_binary(self, data: bytes, max_events: int | None = None):
+        """Like ``decode`` but for a u32-length-prefixed stream of binary
+        event records (stream/binfmt.py layout); shares the same intern
+        tables, so mixed JSON/binary sessions keep stable ids."""
+        from heatmap_tpu_torch.stream.events import columns_from_arrays
+
+        cap = (max_events if max_events is not None
+               else len(data) // 36 + 1)  # min frame = 4 + 32-byte header
+        lat = np.empty(cap, np.float32)
+        lon = np.empty(cap, np.float32)
+        speed = np.empty(cap, np.float32)
+        ts = np.empty(cap, np.int32)
+        pid = np.empty(cap, np.int32)
+        vid = np.empty(cap, np.int32)
+        dropped = ctypes.c_int64(0)
+        consumed = ctypes.c_int64(0)
+        n = self._lib.dec_decode_binary(
+            self._h, data, len(data), cap,
+            lat, lon, speed, ts, pid, vid,
+            ctypes.byref(dropped), ctypes.byref(consumed),
+        )
+        self._refresh_interns()
+        cols = columns_from_arrays(
+            lat[:n], lon[:n], speed[:n], ts[:n],
+            provider_id=pid[:n], vehicle_id=vid[:n],
+            providers=self._providers, vehicles=self._vehicles,
+        )
+        cols.n_dropped = int(dropped.value)
+        return cols, int(consumed.value)
 
 
 def _encode_with_resize(call, cap, what):

@@ -8,7 +8,9 @@ The reference's event is an 8-field JSON object
 ``parse_events`` turns a list of event dicts into ``EventColumns``
 (struct-of-arrays) with the reference's validation folded in (null
 provider/vehicleId dropped, lat/lon bounds, unparseable ts dropped);
-``columns_from_arrays`` is the zero-parse path of columnar sources.
+``columns_from_arrays`` is the zero-parse path of columnar sources;
+``empty_columns`` and ``slice_columns`` serve the batch-granular sources
+(columnar values, the feeder process) and the runtime's carry.
 """
 
 from __future__ import annotations
@@ -143,3 +145,34 @@ def columns_from_arrays(lat_deg, lng_deg, speed_kmh, ts_s,
         vehicles=vehicles or [],
     )
 
+
+
+def empty_columns(providers=None, vehicles=None) -> EventColumns:
+    """A zero-row batch (shared string tables passed through, NOT the
+    defaulted ones columns_from_arrays would substitute)."""
+    import dataclasses
+
+    cols = columns_from_arrays([], [], [], [])
+    return dataclasses.replace(
+        cols,
+        providers=providers if providers is not None else [],
+        vehicles=vehicles if vehicles is not None else [],
+    )
+
+
+def slice_columns(cols: EventColumns, start: int, stop: int) -> EventColumns:
+    """Row slice of a batch (string tables shared, n_dropped stays with
+    the head slice so counts aren't double-booked)."""
+    return EventColumns(
+        lat_rad=cols.lat_rad[start:stop],
+        lng_rad=cols.lng_rad[start:stop],
+        lat_deg=cols.lat_deg[start:stop],
+        lng_deg=cols.lng_deg[start:stop],
+        speed_kmh=cols.speed_kmh[start:stop],
+        ts_s=cols.ts_s[start:stop],
+        provider_id=cols.provider_id[start:stop],
+        vehicle_id=cols.vehicle_id[start:stop],
+        providers=cols.providers,
+        vehicles=cols.vehicles,
+        n_dropped=cols.n_dropped if start == 0 else 0,
+    )

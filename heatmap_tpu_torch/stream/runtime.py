@@ -28,6 +28,25 @@ per-cell velocity field rides the tile docs of each flush as ``vxKmh`` /
 ``vyKmh``, and its entity table commits with the window state as
 ``extra-infer.npz``.  With ``count`` alone nothing of it is built.
 
+``HEATMAP_H3_IMPL`` picks the snap that keys the fold, as the reference's
+runtime resolves it (``resolve_snap_route``): ``native`` snaps the live
+rows of each batch on the host with the f64 C++ snap
+(``hexgrid.native_snap``) while the batch is padded, and hands the keys to
+the fold as ``prekeys`` (no snap launch); ``auto`` takes ``native`` on the
+CPU and the in-program snap (the fused CUDA kernel, its plain version on
+the CPU) on the card; ``xla`` and ``pallas`` take the in-program snap, as
+does every value above res 10.  Every commit records the route under the
+reference's names (``native`` | ``pallas``), and a resume under ``auto``
+pins the route its checkpoint names (``_pin_snap_impl``), so edge events
+are never re-keyed in the middle of a stream; a host snap that cannot be
+built raises.
+
+A source that takes whole records (columnar values, the feeder process)
+may return more rows than a batch: the overshoot is carried
+(``_carry_cols``) and folded as the next batch before the source is polled
+again, and the dispatched offsets, and so the commits, advance only once
+the last row of the poll has been dispatched.
+
 At each dispatch the positions fold (``_fold_positions``, numpy on the
 host, as in the reference) picks the newest event of each vehicle in the
 batch, keeps it only if it is newer than the last one emitted for that
@@ -81,7 +100,8 @@ from heatmap_tpu_torch.sink.base import (PositionRows, Store, TilePackMeta,
                                          packed_tile_docs)
 from heatmap_tpu_torch.sink.writer import AsyncWriter
 from heatmap_tpu_torch.stream.checkpoint import CheckpointManager
-from heatmap_tpu_torch.stream.events import EventColumns, parse_events
+from heatmap_tpu_torch.stream.events import (EventColumns, parse_events,
+                                             slice_columns)
 from heatmap_tpu_torch.stream.source import Source
 
 log = logging.getLogger(__name__)
@@ -106,8 +126,11 @@ class _FeedBatch(NamedTuple):
     host: dict           # the pinned host buffers the copies read from
     ready: object        # CUDA event after the copies (None on the CPU)
     offset: object       # source offset after this batch's poll
-    spans: dict          # poll and feed seconds, and the source's own
-                         # poll sub-spans (fetch, decode) when it has them
+    carried: bool        # rows of this batch's poll are still carried:
+                         # its offset may not be committed yet
+    spans: dict          # poll and feed seconds (and the host snap's, on
+                         # the native route), and the source's own poll
+                         # sub-spans (fetch, decode) when it has them
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -118,6 +141,27 @@ def resolve_device(device: str | torch.device) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "plain versions on the CPU")
     return device
+
+
+# the names a checkpoint's ``snap_impl`` may carry for the in-program snap:
+# the reference's ("pallas", "xla") and the port's before the reference's
+# names were adopted ("cuda", "torch")
+_IN_PROGRAM_SNAP_NAMES = ("pallas", "xla", "cuda", "torch")
+
+
+def resolve_snap_route(h3_impl: str, device: torch.device,
+                       resolutions) -> str:
+    """The snap that keys the fold, as the reference's runtime resolves
+    ``HEATMAP_H3_IMPL`` (heatmap_tpu/stream/runtime.py:747-757):
+    ``"native"`` (the f64 host snap, keys fed as ``prekeys``) for
+    ``native``, and for ``auto`` on the CPU; ``"pallas"`` (the in-program
+    snap: the CUDA kernel, its plain version on the CPU) otherwise, and
+    for any resolution above 10, which the host snap does not cover."""
+    want_native = (h3_impl == "native"
+                   or (h3_impl == "auto" and device.type == "cpu"))
+    if want_native and all(r <= 10 for r in resolutions):
+        return "native"
+    return "pallas"
 
 
 def _wrap32(x):
@@ -210,9 +254,19 @@ class MicroBatchRuntime:
                 " a minting burst beyond the observed margin DROPS groups"
                 " (loudly) — set HEATMAP_ON_OVERFLOW=fail for the lossless"
                 " stop-and-replay backstop", cfg.on_overflow)
+        # the snap that keys the fold: the host snap's keys ride the feed
+        # as prekeys; a host snap that cannot be built raises here
+        self._h3_env = os.environ.get("HEATMAP_H3_IMPL", "auto")
+        self._host_snap = None
+        if resolve_snap_route(self._h3_env, self.device,
+                              cfg.resolutions) == "native":
+            self._use_host_snap()
+        # a batch-granular poll's rows past the batch, folded next
+        self._carry_cols: EventColumns | None = None
+        self._carried_last = False  # the last dispatch left rows carried
+        self._ckpt_due = False      # cadence hit while carrying
         # checkpoints: the commit runs on a background thread; its error
         # surfaces on the step thread at the next join
-        self.snap_impl = "cuda" if cuda else "torch"  # this device's route
         self.ckpt = CheckpointManager(cfg.checkpoint_dir)
         self._ckpt_thread: threading.Thread | None = None
         self._ckpt_err: BaseException | None = None
@@ -238,6 +292,10 @@ class MicroBatchRuntime:
         # enqueue, the predicate wait excluded), predicate (the host's wait
         # on the fold's tier predicate read, engine.step._read_flags),
         # positions (the positions fold and its hand-off to the writer),
+        # snap (the host snap of the batch's live rows on the native
+        # route, inside feed), wait and copy (inside the poll, from the
+        # feeder process's source: the wait on the feeder and the copy
+        # out of its ring),
         # prefetch (the next batch's poll and feed, after this dispatch),
         # checkpoint (the flush before it and the capture on this thread;
         # 0 on most batches); infer (the Kalman reducer's fold of the
@@ -252,7 +310,7 @@ class MicroBatchRuntime:
             k: [] for k in ("poll", "feed", "pull", "sink", "dispatch",
                             "predicate", "positions", "prefetch",
                             "checkpoint", "infer", "fetch", "decode",
-                            "device_fold")}
+                            "snap", "wait", "copy", "device_fold")}
         # the last flush's batches: [([host matrix per pair], epoch)]
         self.last_flush: list = []
         self._fold_events: list = []  # CUDA event pairs not yet read
@@ -282,6 +340,48 @@ class MicroBatchRuntime:
         self.writer = AsyncWriter(store)
 
     # ------------------------------------------------------------------
+    @property
+    def snap_impl(self) -> str:
+        """The snap keying this run's state, under the reference's
+        checkpoint names: ``"native"`` (the host snap) or ``"pallas"``
+        (the in-program snap)."""
+        return "native" if self._host_snap is not None else "pallas"
+
+    def _use_host_snap(self) -> None:
+        """Key the fold with the host snap; builds it now, so a library
+        that cannot be built raises with the compiler's output."""
+        from heatmap_tpu_torch.hexgrid import native_snap
+
+        self._host_snap = native_snap.host_snap()
+
+    def _pin_snap_impl(self, ck_snap: str | None) -> None:
+        """Keep the snap fixed across a resume, as the reference's
+        ``_pin_snap_impl`` does: the host (f64) and in-program (f32) snaps
+        disagree on points at cell edges, and switching between them
+        mid-stream would re-key those events and split their groups across
+        the resume.  Under ``auto`` the checkpoint's route wins; an
+        explicit ``HEATMAP_H3_IMPL`` is honoured and the hazard logged, as
+        in the reference.  A checkpoint without a known name pins
+        nothing."""
+        if ck_snap != "native" and ck_snap not in _IN_PROGRAM_SNAP_NAMES:
+            return
+        ck_route = "native" if ck_snap == "native" else "pallas"
+        if ck_route == self.snap_impl:
+            return
+        was = self.snap_impl
+        if self._h3_env != "auto":
+            log.warning(
+                "checkpoint state was keyed with the %r H3 snap but "
+                "HEATMAP_H3_IMPL=%s forces %r; events on f32 cell edges may "
+                "re-key across this resume", ck_snap, self._h3_env, was)
+            return
+        if ck_route == "native":
+            self._use_host_snap()
+        else:
+            self._host_snap = None
+        log.info("pinned H3 snap %r from checkpoint (was %r under "
+                 "HEATMAP_H3_IMPL=auto)", self.snap_impl, was)
+
     def _maybe_resume(self) -> None:
         """Resume from the latest commit, if there is one: epoch,
         watermark, source offset and each pair's slab."""
@@ -289,13 +389,7 @@ class MicroBatchRuntime:
         if not meta:
             return
         log.info("resuming from checkpoint: %s", meta)
-        ck_snap = meta.get("snap_impl")
-        if ck_snap is not None and ck_snap != self.snap_impl:
-            # one snap route per device here: nothing to pin, only warn
-            log.warning(
-                "checkpoint state was keyed with the %r H3 snap but this "
-                "run uses %r; events on f32 cell edges may re-key across "
-                "this resume", ck_snap, self.snap_impl)
+        self._pin_snap_impl(meta.get("snap_impl"))
         snap_shards = meta.get("shards")
         if snap_shards is not None and snap_shards != self.multi.n_shards:
             # rows would be reinterpreted as different shard blocks
@@ -354,7 +448,12 @@ class MicroBatchRuntime:
     def _checkpoint(self) -> None:
         """Commit offsets and state: flush the ring (the commit must cover
         every batch its offset covers), take a device copy of each slab
-        here, then copy to the host and write on a background thread."""
+        here, then copy to the host and write on a background thread.
+        Skipped while the last dispatched batch left rows of its poll
+        carried: the commit would cover rows not folded yet, and the
+        slices already folded would fold twice on replay."""
+        if self._carried_last:
+            return
         self.flush_pending("checkpoint")
         self._ckpt_join()  # one commit in flight at a time
         t0 = time.monotonic()
@@ -459,25 +558,34 @@ class MicroBatchRuntime:
         return cols if len(cols) else None
 
     def _next_batch(self) -> _FeedBatch | None:
-        """Poll one batch, pad it to the feed shape in fresh host buffers
-        and start its copies to the device; None on a poll with no valid
-        event.  On CUDA the buffers are pinned, from PyTorch's caching
-        host allocator (which hands a buffer out again only once its copy
-        has finished), and the copies run on the side stream: the fold's
-        stream waits on ``ready`` when the batch is dispatched."""
+        """The next batch: the carried rows of the last poll, else a fresh
+        poll, its rows past the batch carried; padded to the feed shape in
+        fresh host buffers (with the host snap's keys on the native route)
+        and its copies to the device started.  None on a poll with no
+        valid event.  On CUDA the buffers are pinned, from PyTorch's
+        caching host allocator (which hands a buffer out again only once
+        its copy has finished), and the copies run on the side stream:
+        the fold's stream waits on ``ready`` when the batch is
+        dispatched."""
         t0 = time.monotonic()
-        polled = self.source.poll(self.cfg.batch_size)
-        src_spans = self.source.take_spans()
-        cols = self._build_batch(polled)
-        if cols is None:
-            return None
+        src_spans = {}
+        if self._carry_cols is not None:
+            cols, self._carry_cols = self._carry_cols, None
+        else:
+            polled = self.source.poll(self.cfg.batch_size)
+            src_spans = self.source.take_spans()
+            cols = self._build_batch(polled)
+            if cols is None:
+                return None
+        size = self.cfg.batch_size
+        if len(cols) > size:
+            self._carry_cols = slice_columns(cols, size, len(cols))
+            cols = slice_columns(cols, 0, size)
         n = len(cols)
-        if n > self.cfg.batch_size:
-            raise ValueError(f"source returned {n} events for a batch of "
-                             f"{self.cfg.batch_size}")
+        # offsets as of this poll: committed once the batch is dispatched
+        # and no row of the poll is carried any more
         offset = self.source.offset()
         t1 = time.monotonic()
-        size = self.cfg.batch_size
         pin = self._copy_stream is not None
         host = {}
         for name, arr, dtype in (
@@ -492,6 +600,20 @@ class MicroBatchRuntime:
             host[name] = buf
         host["valid"] = torch.zeros(size, dtype=torch.bool, pin_memory=pin)
         host["valid"].numpy()[:n] = True
+        snap_s = 0.0
+        if self._host_snap is not None:
+            # only the live prefix is snapped; the padding keys are masked
+            # by the fold's valid lane
+            t_snap = time.monotonic()
+            for res in self.multi._uniq_res:
+                hi, lo = self._host_snap.snap(cols.lat_rad, cols.lng_rad,
+                                              res)
+                for name, words in (("hi", hi), ("lo", lo)):
+                    buf = torch.zeros(size, dtype=torch.int32,
+                                      pin_memory=pin)
+                    buf.numpy()[:n] = words.view(np.int32)
+                    host[f"{name}{res}"] = buf
+            snap_s = time.monotonic() - t_snap
         feed, ready = host, None
         if pin:
             with torch.cuda.stream(self._copy_stream):
@@ -499,10 +621,13 @@ class MicroBatchRuntime:
                         for k, v in host.items()}
                 ready = torch.cuda.Event()
                 ready.record()
+        spans = {**src_spans, "poll": t1 - t0,
+                 "feed": time.monotonic() - t1}
+        if self._host_snap is not None:
+            spans["snap"] = snap_s
         return _FeedBatch(cols=cols, n=n, feed=feed, host=host,
                           ready=ready, offset=offset,
-                          spans={**src_spans, "poll": t1 - t0,
-                                 "feed": time.monotonic() - t1})
+                          carried=self._carry_cols is not None, spans=spans)
 
     def _host_batch_max_ts(self, ts_s: np.ndarray) -> int:
         """Watermark advance for one batch, computed on the host with the
@@ -697,15 +822,24 @@ class MicroBatchRuntime:
         if self.time_device_fold and self.device.type == "cuda":
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             events[0].record()
+        prekeys = None
+        if self._host_snap is not None:
+            prekeys = {res: (feed[f"hi{res}"], feed[f"lo{res}"])
+                       for res in self.multi._uniq_res}
         wait0 = step._read_flags.wait_s
         packed = self.multi.step_packed_all(
             feed["lat"], feed["lng"], feed["speed"], feed["ts"],
-            feed["valid"], cutoff)
+            feed["valid"], cutoff, prekeys=prekeys)
         predicate_s = step._read_flags.wait_s - wait0
         if events is not None:
             events[1].record()
         self._ring.append(packed, self.epoch)
-        self._offsets_dispatched = entry.offset
+        self._carried_last = entry.carried
+        if not entry.carried:
+            # offsets advance only once every row of the poll is
+            # dispatched; the entry's own snapshot, since the prefetch may
+            # have polled further ahead
+            self._offsets_dispatched = entry.offset
         t3 = time.monotonic()
         # host-side watermark advance: the next batch's cutoff, whatever K
         bm = self._host_batch_max_ts(entry.cols.ts_s)
@@ -738,9 +872,15 @@ class MicroBatchRuntime:
             self._prefetched.append(nxt)
         t5 = time.monotonic()
         if self.checkpoint_every and self.epoch % self.checkpoint_every == 0:
+            # a cadence hit while carrying holds the commit until the
+            # first carry-free step: a fixed record-to-batch size ratio
+            # could otherwise keep every cadence epoch mid-carry
+            self._ckpt_due = True
+        if self._ckpt_due and not self._carried_last:
+            self._ckpt_due = False
             self._checkpoint()
         t6 = time.monotonic()
-        for name in ("fetch", "decode"):
+        for name in ("fetch", "decode", "snap", "wait", "copy"):
             if name in entry.spans:
                 self.span_ms[name].append(entry.spans[name] * 1e3)
         if infer_s is not None:
@@ -824,7 +964,7 @@ class MicroBatchRuntime:
         return stats.batch_max_ts
 
     def close(self) -> None:
-        """Fold the prefetched batches, flush the ring, commit the exit
+        """Fold the carried and prefetched batches, flush the ring, commit the exit
         checkpoint and wait for it, then close the source and the writer
         (which drains it).  After a fail-mode overflow or a poisoned
         writer, nothing is folded or committed: the last good commit
@@ -833,7 +973,10 @@ class MicroBatchRuntime:
         failed = lambda: self._fatal or self.writer.poisoned
         try:
             try:
-                while self._prefetched and not failed():
+                # fold the carried and prefetched rows, so the exit commit
+                # covers every row the source handed out
+                while ((self._carry_cols is not None or self._prefetched)
+                       and not failed()):
                     self.step_once()
                 if not self.writer.poisoned:
                     self.flush_pending("close")

@@ -1,20 +1,21 @@
 """Pull sources with replayable offsets.
 
-A copy of ``Source``, ``MemorySource``, ``SyntheticSource`` and
-``KafkaSource`` (its wire impl, JSON values) from
+A copy of ``Source``, ``MemorySource``, ``JsonlReplaySource``,
+``SyntheticSource`` and ``KafkaSource`` (its wire impl) from
 ``heatmap_tpu/stream/source.py``: ``poll`` returns up to ``max_events``
 events past the current position (``EventColumns``, or a list of event
 dicts that the runtime parses), ``offset``/``seek`` expose a serializable
 position.  ``SyntheticSource`` generates the same bytes as the reference's
 for the same arguments; ``KafkaSource`` polls a topic to the same columns,
-counters and offsets as the reference's wire impl: with the native codecs
-(record framing and the JSON-lines decoder, ``heatmap_tpu_torch.native``)
-by default, or with the Python codecs, their plain versions, when the
-caller passes ``decoder="python"``.
+counters and offsets as the reference's wire impl, in each event format
+``HEATMAP_EVENT_FORMAT`` names (``json``, ``binary``: stream/binfmt.py,
+``columnar``: stream/colfmt.py): with the native codecs
+(``heatmap_tpu_torch.native``: record framing, the JSON-lines and binary
+decoders, the columnar string-table parser) by default, or with the Python
+codecs, their plain versions, when the caller passes ``decoder="python"``.
 
 Not ported (they raise ``NotImplementedError`` where the reference would
-take them): the confluent and kafka-python consumers, and the binary and
-columnar event formats.
+take them): the confluent and kafka-python consumers.
 """
 
 from __future__ import annotations
@@ -70,13 +71,41 @@ class Source(abc.ABC):
         pass
 
 
-def _decode_json_values(values: list[bytes], intern_p: dict,
-                        intern_v: dict):
-    """Raw JSON event values -> EventColumns (the reference's Python
-    codec): undecodable values are dropped and counted in n_dropped with
-    the ones that fail validation.  [] for no values."""
+EVENT_FORMATS = ("json", "binary", "columnar")
+
+
+def event_format() -> str:
+    """``HEATMAP_EVENT_FORMAT`` (default json), read at call time; a name
+    outside ``EVENT_FORMATS`` raises rather than decode as JSON."""
+    fmt = os.environ.get("HEATMAP_EVENT_FORMAT", "json")
+    if fmt not in EVENT_FORMATS:
+        raise ValueError(f"HEATMAP_EVENT_FORMAT must be one of "
+                         f"{'|'.join(EVENT_FORMATS)}, got {fmt!r}")
+    return fmt
+
+
+def _decode_raw_values(dec, values: list[bytes], intern_p: dict,
+                       intern_v: dict, fmt: str = "json"):
+    """Raw event value byte-strings (JSON or binary) -> EventColumns, via
+    the C++ decoder ``dec`` (a ``native.NativeDecoder``), or the Python
+    codecs, their plain versions, when ``dec`` is None.  Both paths drop
+    the same documents AND count them in n_dropped.  [] for no values."""
     if not values:
         return []
+    if fmt == "binary":
+        from heatmap_tpu_torch.stream import binfmt
+
+        if dec is not None:
+            cols, _ = dec.decode_binary(binfmt.frame_lp(values))
+            return cols
+        dicts, dropped = binfmt.decode_events(values)
+        cols = parse_events(dicts, intern_p, intern_v)
+        cols.n_dropped += dropped
+        return cols
+    if dec is not None:
+        from heatmap_tpu_torch.native import decode_lines
+
+        return decode_lines(dec, values)
     out = []
     malformed = 0
     for v in values:
@@ -130,6 +159,71 @@ class MemorySource(Source):
     @property
     def exhausted(self) -> bool:
         return self._done and not self._q
+
+
+class JsonlReplaySource(Source):
+    """Replay a JSON-lines event capture; offset = line number.  Lines
+    decode in batches through the C++ decoder (``decoder="native"``, the
+    default) or per line with ``json.loads`` (``decoder="python"``, the
+    plain version)."""
+
+    def __init__(self, path: str, loop: bool = False,
+                 decoder: str = "native"):
+        if decoder not in ("native", "python"):
+            raise ValueError(f"decoder must be native|python, got "
+                             f"{decoder!r}")
+        self.path = path
+        self.loop = loop
+        from heatmap_tpu_torch.native import NativeDecoder
+
+        self._dec = NativeDecoder() if decoder == "native" else None
+        self._fh = open(path, "rb")
+        self._line = 0
+        self._eof = False
+        self._intern_p: dict = {}
+        self._intern_v: dict = {}
+
+    def poll(self, max_events: int):
+        raw: list[bytes] = []
+        wrapped = False
+        while len(raw) < max_events:
+            line = self._fh.readline()
+            if not line:
+                if self.loop and not wrapped:
+                    # at most one wrap per poll, so an empty/unparseable
+                    # file can't spin this loop forever
+                    self._fh.seek(0)
+                    self._line = 0
+                    wrapped = True
+                    continue
+                self._eof = not self.loop
+                break
+            self._line += 1
+            line = line.strip()
+            if not line:
+                continue
+            raw.append(line)
+        return _decode_raw_values(self._dec, raw,
+                                  self._intern_p, self._intern_v)
+
+    def offset(self):
+        return self._line
+
+    def seek(self, offset) -> None:
+        self._fh.seek(0)
+        for _ in range(int(offset or 0)):
+            self._fh.readline()
+        self._line = int(offset or 0)
+        self._eof = False
+
+    @property
+    def exhausted(self) -> bool:
+        return self._eof and not self.loop
+
+    def close(self) -> None:
+        self._fh.close()
+        if self._dec is not None:
+            self._dec.close()
 
 
 class SyntheticSource(Source):
@@ -217,16 +311,27 @@ class SyntheticSource(Source):
 class KafkaSource(Source):
     """Kafka consumer source (the reference's ingress contract) over the
     port's own wire client, ``heatmap_tpu_torch.kafka``: the reference's
-    wire impl.  ``decoder="native"`` (the default, the reference's path
-    whenever g++ can build its codecs): each fetch's records blob is framed
-    to newline-joined values in C++ and the values decode in C++ to
-    columns, with the decoder's own persistent intern tables; a blob that
-    the native framing refuses (malformed varints, a value holding a
-    newline) takes the Python record decoder and ``json.loads``, as the
-    reference's does, and counts in ``kafka_native_fallback_blobs``.
-    ``decoder="python"``: the plain version, per-record ``json.loads`` then
-    ``parse_events``.  ``values_decoded_native`` and
-    ``values_decoded_python`` count the values each path decoded.
+    wire impl, in the event format ``HEATMAP_EVENT_FORMAT`` names.
+
+    - ``json`` and ``binary``, ``decoder="native"`` (the default, the
+      reference's path whenever g++ can build its codecs): each fetch's
+      records blob is framed in C++ (newline-joined JSON values, or u32
+      length prefixes for binary values) and the joined values decode in
+      C++ to columns, with the decoder's own persistent intern tables; a
+      blob that the native framing refuses (malformed varints, a JSON
+      value holding a newline) takes the Python record decoder, as the
+      reference's does, and counts in ``kafka_native_fallback_blobs``.
+    - ``columnar``: each record value is a whole struct-of-arrays batch
+      (stream/colfmt.py), decoded with numpy views; its string table is
+      parsed in C++ (``decoder="native"``) or in Python.  Values are taken
+      whole, so a poll may return up to one value more than
+      ``max_events``; the runtime carries the overshoot.
+    - ``decoder="python"``: the plain versions, per-record ``json.loads``
+      or ``binfmt.decode_events`` then ``parse_events``, and colfmt's
+      Python string-table parse.
+
+    ``values_decoded_native`` and ``values_decoded_python`` count the
+    record values each path decoded.
 
     Starts at LATEST offsets like the reference (startingOffsets=latest);
     ``seek`` with a checkpointed {partition: offset} map overrides that on
@@ -237,13 +342,10 @@ class KafkaSource(Source):
     HEATMAP_KAFKA_IMPL: ``auto`` and ``wire`` take this client (the
     reference's ``auto`` prefers confluent_kafka when installed; no such
     client is ported); ``confluent`` and ``kafka-python`` raise.
-    HEATMAP_EVENT_FORMAT: only the reference contract's ``json`` values
-    are ported; ``binary`` and ``columnar`` raise rather than decode
-    something else.
     """
 
     # extra fetch sweeps per poll may start within this wall budget (the
-    # first sweep always runs); see _fetch_values
+    # first sweep always runs); see _poll_record_loop
     sweep_budget_s = 0.2
 
     def __init__(self, bootstrap: str, topic: str, decoder: str = "native"):
@@ -255,12 +357,7 @@ class KafkaSource(Source):
         if impl not in ("auto", "wire"):
             raise ValueError(f"HEATMAP_KAFKA_IMPL must be auto|wire|"
                              f"confluent|kafka-python, got {impl!r}")
-        fmt = os.environ.get("HEATMAP_EVENT_FORMAT", "json")
-        if fmt != "json":
-            raise NotImplementedError(
-                f"HEATMAP_EVENT_FORMAT={fmt!r}: only 'json' is ported to "
-                f"heatmap_tpu_torch (binary and columnar values are not "
-                f"ported)")
+        self._fmt = event_format()
         if decoder not in ("native", "python"):
             raise ValueError(f"decoder must be native|python, got "
                              f"{decoder!r}")
@@ -269,7 +366,8 @@ class KafkaSource(Source):
 
         # built before the broker is reached: a codec that cannot be
         # built raises here, never as an unreachable broker
-        self._dec = NativeDecoder() if decoder == "native" else None
+        self._native = decoder == "native"
+        self._dec = NativeDecoder() if self._native else None
         self.log = logging.getLogger(__name__)
         self.c = KafkaClient(bootstrap)
         self.topic = topic
@@ -286,6 +384,7 @@ class KafkaSource(Source):
         self._rr = 0  # round-robin cursor
         self._intern_p: dict = {}
         self._intern_v: dict = {}
+        self._col_cache: dict = {}  # colfmt LUT memo (same lifetime)
         # per-fetch response cap (read here, not at import, so a caller
         # setting the env var after import is honored)
         self.fetch_max_bytes = int(os.environ.get(
@@ -349,17 +448,18 @@ class KafkaSource(Source):
             self._spans["fetch"] += _time.monotonic() - t0
         return None
 
-    def _fetch_values(self, max_events) -> list[bytes]:
-        """Up to ``max_events`` non-null record values: round-robin the
-        partitions, guarded fetch, advance the offset past every record
-        (tombstones too) and past skipped batches when a fetch is fully
-        consumed."""
-        values: list[bytes] = []
+    def _poll_record_loop(self, max_events, handle) -> None:
+        """Per-record fetch skeleton: round-robin the partitions, guarded
+        fetch, advance the offset past every record (tombstones too) and
+        past skipped batches when a fetch is fully consumed.
+        ``handle(p, r) -> n`` consumes one non-null record and returns how
+        many events it contributed toward ``max_events``."""
         if not self._offsets:
             self._discover()
         parts = sorted(self._offsets)
         if not parts:
-            return values
+            return
+        n_out = 0
         # Sweep the partitions repeatedly until the request is filled or a
         # full sweep makes no progress: one fetch returns at most
         # ~fetch_max_bytes of records.  Only the first sweep's fetches wait
@@ -369,10 +469,10 @@ class KafkaSource(Source):
         # trickle producer to fill it.
         sweep_wait = 50
         t0 = _time.monotonic()
-        while len(values) < max_events:
+        while n_out < max_events:
             progressed = False
             for k in range(len(parts)):
-                if len(values) >= max_events:
+                if n_out >= max_events:
                     break
                 p = parts[(self._rr + k) % len(parts)]
                 fr = self._guarded_fetch(
@@ -387,12 +487,12 @@ class KafkaSource(Source):
                         fr.skipped_batches, self.topic, p)
                 taken = 0
                 for r in fr.records:
-                    if len(values) >= max_events:
+                    if n_out >= max_events:
                         break
                     taken += 1
                     self._offsets[p] = r.offset + 1
                     if r.value is not None:
-                        values.append(r.value)
+                        n_out += handle(p, r)
                 if taken:
                     progressed = True
                 if taken == len(fr.records):
@@ -405,24 +505,70 @@ class KafkaSource(Source):
                 break
             sweep_wait = 0
         self._rr = (self._rr + 1) % max(len(parts), 1)
-        return values
 
     def poll(self, max_events):
+        if self._fmt == "columnar":
+            return self._poll_colfmt(max_events)
         if self._dec is not None:
             return self._poll_native(max_events)
-        values = self._fetch_values(max_events)
+        return self._poll_records(max_events)
+
+    def _poll_colfmt(self, max_events):
+        """HEATMAP_EVENT_FORMAT=columnar: each record value is a whole
+        struct-of-arrays batch (stream/colfmt.py); decode is numpy views,
+        no per-event work.  Values are consumed whole (a poll may
+        overshoot max_events by up to one value)."""
+        from heatmap_tpu_torch.stream.colfmt import (concat_columns,
+                                                     decode_batch)
+
+        out = []
+        counter = ("values_decoded_native" if self._native
+                   else "values_decoded_python")
+
+        def handle(p, r):
+            t0 = _time.monotonic()
+            cols = decode_batch(r.value, self._intern_p, self._intern_v,
+                                self._col_cache, native=self._native)
+            self._spans["decode"] += _time.monotonic() - t0
+            self._counters[counter] += 1
+            if cols is None:
+                self.log.warning("dropping malformed columnar value at "
+                                 "%s[%d]@%d", self.topic, p, r.offset)
+                return 0
+            if len(cols) or cols.n_dropped:
+                out.append(cols)
+            return len(cols)
+
+        self._poll_record_loop(max_events, handle)
+        if not out:
+            return []
+        return concat_columns(out, self._intern_p, self._intern_v)
+
+    def _poll_records(self, max_events):
+        """The plain version: per-record Python decode."""
+        values: list[bytes] = []
+
+        def handle(p, r):
+            values.append(r.value)
+            return 1
+
+        self._poll_record_loop(max_events, handle)
         t0 = _time.monotonic()
-        cols = _decode_json_values(values, self._intern_p, self._intern_v)
+        cols = _decode_raw_values(None, values, self._intern_p,
+                                  self._intern_v, self._fmt)
         self._spans["decode"] += _time.monotonic() - t0
         self._counters["values_decoded_python"] += len(values)
         return cols
 
     def _poll_native(self, max_events):
         """One sweep of the partitions: each fetch's blob decodes to a
-        joined values buffer in C++ (``KafkaClient.fetch_values``), and
-        the joined buffers decode to columns in C++.  Per-record Python
-        runs only for a blob that the native framing refused, whose
-        values are re-framed into the same stream."""
+        joined values buffer in C++ (``KafkaClient.fetch_values``, newline
+        framing for JSON, length prefixes for binary), and the joined
+        buffers decode to columns in C++.  Per-record Python runs only for
+        a blob that the native framing refused, whose values are re-framed
+        into the same stream."""
+        binary = self._fmt == "binary"
+        framing = "lp" if binary else "newline"
         if not self._offsets:
             self._discover()
         parts = sorted(self._offsets)
@@ -437,7 +583,8 @@ class KafkaSource(Source):
             res = self._guarded_fetch(
                 p, lambda p=p: self.c.fetch_values(
                     self.topic, p, self._offsets[p],
-                    max_bytes=self.fetch_max_bytes, max_wait_ms=50))
+                    max_bytes=self.fetch_max_bytes, max_wait_ms=50,
+                    framing=framing))
             if res is None:
                 continue
             _hw, fv = res
@@ -474,6 +621,12 @@ class KafkaSource(Source):
                 if r.value is None:
                     continue
                 n_python += 1
+                if binary:
+                    from heatmap_tpu_torch.stream.binfmt import frame_lp
+
+                    blobs.append(frame_lp([r.value]))
+                    n_out += 1
+                    continue
                 try:
                     blobs.append(
                         json.dumps(json.loads(r.value)).encode() + b"\n")
@@ -492,7 +645,11 @@ class KafkaSource(Source):
                 return cols
             return []
         t0 = _time.monotonic()
-        cols, _ = self._dec.decode(b"".join(blobs), final=True)
+        joined = b"".join(blobs)
+        if binary:
+            cols, _ = self._dec.decode_binary(joined)
+        else:
+            cols, _ = self._dec.decode(joined, final=True)
         self._spans["decode"] += _time.monotonic() - t0
         cols.n_dropped += pre_dropped
         return cols

@@ -180,7 +180,7 @@ def test_checkpoint_resume(tmp_path):
     assert src.offset() == 1536
     assert rt._offsets_dispatched == 1024
     assert rt.ckpt.load_meta() == {"offset": 1024, "epoch": 2, "shards": 1,
-                                   "snap_impl": "torch",
+                                   "snap_impl": "native",
                                    "max_event_ts": rt.max_event_ts}
 
     src2 = SyntheticSource(n_events=2048, n_vehicles=50,
@@ -628,7 +628,7 @@ def test_port_commit_resumed_by_jax(tmp_path, monkeypatch):
     store = MemoryStore()
     rt = _port_runtime(tmp_path / "a", store, 2)
     _killed_after_commit(rt)
-    assert rt.ckpt.load_meta()["snap_impl"] == "torch"
+    assert rt.ckpt.load_meta()["snap_impl"] == "pallas"
     jstore = JaxMemoryStore()
     jstore.upsert_tiles(copy.deepcopy(list(store._tiles.values())))
     jrt = _jax_runtime(tmp_path / "a", jstore, 0)

@@ -270,9 +270,34 @@ def test_aggregate_batch_is_snap_then_merge():
     assert int(s1.n_valid) == int(valid.sum())
 
 
-@pytest.mark.parametrize("impl", ["auto", "xla", "pallas"])
-def test_snap_route_ignores_the_reference_knob(monkeypatch, impl):
-    """The port has one snap route whatever HEATMAP_H3_IMPL says: the
-    kernel wrapper, which takes the plain version only for CPU tensors."""
-    monkeypatch.setenv("HEATMAP_H3_IMPL", impl)
+@pytest.mark.parametrize("impl,device,res,route", [
+    ("auto", "cpu", RES, "native"), ("xla", "cpu", RES, "pallas"),
+    ("pallas", "cpu", RES, "pallas"), ("native", "cpu", RES, "native"),
+    ("typo", "cpu", RES, "pallas"), ("native", "cpu", 11, "pallas"),
+    ("auto", "cpu", 11, "pallas"), ("auto", "cuda", RES, "pallas"),
+    ("native", "cuda", RES, "native"), ("xla", "cuda", RES, "pallas")])
+def test_snap_route_resolves_as_the_reference(monkeypatch, tmp_path, impl,
+                                              device, res, route):
+    """HEATMAP_H3_IMPL resolves as heatmap_tpu/stream/runtime.py:747-757
+    does: the host snap (``native``) for ``native``, and for ``auto`` on
+    the CPU; the in-program snap (``pallas``: the kernel wrapper, its plain
+    version only for CPU tensors) otherwise and above res 10.  A CPU
+    runtime built under the knob takes that route."""
+    from heatmap_tpu_torch.config import load_config
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.runtime import (MicroBatchRuntime,
+                                                  resolve_snap_route)
+    from heatmap_tpu_torch.stream.source import SyntheticSource
+
+    assert resolve_snap_route(impl, torch.device(device), (res,)) == route
     assert tstep._snap_impl(RES) is snap_kernel.latlng_to_cell_kernel
+    if device == "cpu":
+        monkeypatch.setenv("HEATMAP_H3_IMPL", impl)
+        rt = MicroBatchRuntime(
+            load_config({}, h3_res=res, resolutions=(res,), batch_size=256,
+                        state_capacity_log2=10,
+                        checkpoint_dir=str(tmp_path)),
+            SyntheticSource(n_events=0), MemoryStore(), device="cpu")
+        assert rt.snap_impl == route
+        assert (rt._host_snap is not None) == (route == "native")
+        rt.writer.close()

@@ -35,7 +35,7 @@ from heatmap_tpu_torch import _build
 from heatmap_tpu_torch import native as tnative
 from heatmap_tpu_torch.kafka import records as trec
 from heatmap_tpu_torch.sink.base import PositionRows, TilePackMeta
-from heatmap_tpu_torch.stream.source import _decode_json_values
+from heatmap_tpu_torch.stream.source import _decode_raw_values
 
 
 @pytest.fixture
@@ -232,7 +232,7 @@ def test_native_decoder_matches_jax_and_the_python_parse(rng):
         np.testing.assert_array_equal(got.vehicle_id, want.vehicle_id)
         assert got.providers == want.providers
         assert got.vehicles == want.vehicles
-        plain = _decode_json_values(lines, intern_p, intern_v)
+        plain = _decode_raw_values(None, lines, intern_p, intern_v)
         assert_columns_identical(got, plain)
     assert "a\x00x" in got.vehicles and "\ud800" in got.vehicles
 

@@ -298,7 +298,7 @@ def check_port_commit_resumed_by_jax(tmp_path, tmp_path_factory,
     rt = port_runtime(tmp_path / "a", name, store, every=4)
     _killed_after_commit(rt)
     meta = rt.ckpt.load_meta()
-    assert meta["epoch"] == 4 and meta["snap_impl"] == "torch"
+    assert meta["epoch"] == 4 and meta["snap_impl"] == "pallas"
     assert len(rt.ckpt.load_state(*rt.pairs[0]).key_hi) == \
         rt.multi.capacity_per_shard
     jstore = JaxMemoryStore()

@@ -283,12 +283,15 @@ def test_flush_knobs_validated():
     assert cfg.emit_flush_k == 8 and cfg.emit_pull == "auto"
 
 
-def test_ops_per_batch_counts_the_dispatched_ops(tmp_path):
+def test_ops_per_batch_counts_the_dispatched_ops(tmp_path, monkeypatch):
     """``profile_fold.ops_per_batch`` counts every PyTorch op of one batch
     and the port's own kernel launches, which the CPU makes none of: so on
-    the CPU it covers at least the plain snap that runs inside the fold."""
+    the CPU it covers at least the plain snap that runs inside the fold
+    (the in-program snap, HEATMAP_H3_IMPL=xla: ``auto`` keys the fold with
+    the host snap on the CPU)."""
     from heatmap_tpu_torch.profile_fold import _CountOps, ops_per_batch
 
+    monkeypatch.setenv("HEATMAP_H3_IMPL", "xla")
     rt = MicroBatchRuntime(load_config(None, checkpoint_dir=str(tmp_path),
                                        **AXES),
                            SyntheticSource(**SOURCE_ARGS), MemoryStore(),
