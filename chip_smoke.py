@@ -138,6 +138,31 @@ Phases, one JSON line each:
                 columns, and the entity table equal, within the CPU tests'
                 bar, to the same batches folded by the plain version on the
                 CPU, with the same counters and anomalies by reason.
+12. serve       the read path: synthetic_backfill at its preset widths
+                (res 9, batches of 2^19, 20,000 vehicles, 10M events; its
+                stream starts in the window before the current one, so
+                that no window is stale when the view serves it), in
+                turns with HEATMAP_QUERY_VIEW off, on, and on with the
+                port's server on an ephemeral port during the run
+                (start_background) and a client thread following
+                /api/tiles/delta as the UI does: off, on, served, served
+                with HEATMAP_DELTA_LOG=2^16, on, off.  Each run: one snap
+                launch a batch, every event aggregated; events/s and p50
+                batch printed for each.  A flush upserts more cells than
+                the default 4,096-entry delta log holds, so the first
+                served run's follower gets full bodies only; in the
+                second, delta-mode bodies must carry cells.
+                Each served run: the followed
+                deltas replayed equal /api/tiles/latest, whose counts sum
+                to the events; a serve-only app over the same store (its
+                view rebuilt by StoreViewRefresher) serves the same
+                features; ?fmt=bin decodes to the JSON body; each ?res=
+                rollup's counts sum to the base counts; the ETag answers
+                304; /api/positions/latest holds every vehicle.  Printed:
+                the view's apply time per flush (p50, total), and p50 ms
+                and bytes of /api/tiles/latest (JSON and binary, cached
+                after the first render), /api/tiles/delta from 0 at the
+                full view size, /api/positions/latest.
 
 Then one line listing every kernel (launches on the main path and in
 every later phase, agreement with its plain version, its time, the plain
@@ -2170,6 +2195,299 @@ def phase_infer(torch, run_pipeline, snap_kernel, ckpt_root, dev):
     return out
 
 
+# the serve phase: synthetic_backfill's preset widths, its stream moved to
+# the current time so that no window is stale when the view serves it
+SERVE_SOURCE = dict(n_events=MAIN_EVENTS, n_vehicles=20_000,
+                    events_per_second=1_000_000)
+
+
+def http_get(port, path, headers=None):
+    """(status, headers, body, ms) of one GET on the local server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = r.read()
+            return (r.status, dict(r.headers), body,
+                    (time.perf_counter() - t0) * 1e3)
+    except urllib.error.HTTPError as e:
+        return (e.code, dict(e.headers), e.read(),
+                (time.perf_counter() - t0) * 1e3)
+
+
+class DeltaFollower:
+    """A client that follows /api/tiles/delta as the UI does: replace its
+    cell set on mode "full", upsert by cellId on "delta", feed the seq
+    back as ``since``."""
+
+    def __init__(self, port):
+        import threading
+
+        self.port = port
+        self.cells: dict = {}
+        self.seq = 0
+        self.modes = {"full": 0, "delta": 0}
+        # delta-mode polls that carried cells, and the cells they carried
+        self.deltas_with_cells = 0
+        self.delta_cells = 0
+        self.poll_ms: list = []
+        self.error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="delta-follower")
+
+    def poll(self):
+        status, _, body, ms = http_get(self.port,
+                                       f"/api/tiles/delta?since={self.seq}")
+        if status != 200:
+            raise AssertionError(f"delta poll answered {status}: "
+                                 f"{body[:200]}")
+        d = json.loads(body)
+        if d["mode"] == "full":
+            self.cells = {}
+        elif d["features"]:
+            self.deltas_with_cells += 1
+            self.delta_cells += len(d["features"])
+        for f in d["features"]:
+            self.cells[f["properties"]["cellId"]] = f
+        self.seq = d["seq"]
+        self.modes[d["mode"]] += 1
+        self.poll_ms.append(ms)
+
+    def _run(self):
+        try:
+            while not self._stop.is_set():
+                self.poll()
+                self._stop.wait(0.1)
+        except BaseException as e:  # surfaced by stop()
+            self.error = e
+
+    def start(self):
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=300)
+        if self._thread.is_alive():
+            raise AssertionError("the delta follower did not stop")
+        if self.error is not None:
+            raise AssertionError("the delta follower failed") from self.error
+
+
+def wsgi_get(app, path, qs=""):
+    """One GET through a WSGI app in process: (status, body)."""
+    out = {}
+    it = app({"PATH_INFO": path, "QUERY_STRING": qs,
+              "REQUEST_METHOD": "GET"},
+             lambda status, headers, exc=None: out.update(status=status))
+    try:
+        return out["status"], b"".join(it)
+    finally:
+        if hasattr(it, "close"):
+            it.close()
+
+
+def serve_run(torch, snap_kernel, ckpt_dir, dev, view: bool, served: bool,
+              delta_log: int | None):
+    """synthetic_backfill at its preset widths, the view on or off; when
+    ``served``, the port's server on an ephemeral port and a delta
+    follower during the run.  ``delta_log`` sets HEATMAP_DELTA_LOG (None:
+    the default)."""
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.serve import start_background, stop_background
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+    from heatmap_tpu_torch.stream.source import SyntheticSource
+
+    p = get_pipeline("synthetic_backfill")
+    cfg = dataclasses.replace(p.config, checkpoint_dir=ckpt_dir,
+                              query_view=view, serve_port=0)
+    if delta_log is not None:
+        cfg = dataclasses.replace(cfg, delta_log=delta_log)
+    # one window, the one before the current one: 10 s of event time
+    t0 = (int(time.time()) // 300 - 1) * 300
+    store = MemoryStore()
+    snap_kernel.latlng_to_cell_kernel.launches = 0
+    rt = MicroBatchRuntime(cfg, SyntheticSource(t0=t0, **SERVE_SOURCE),
+                           store, device=dev)
+    server = follower = None
+    if served:
+        httpd, thread, port = start_background(store, cfg, rt)
+        server = (httpd, thread, port)
+        follower = DeltaFollower(port)
+        follower.start()
+    t_start = time.monotonic()
+    try:
+        rt.run()
+    finally:
+        if follower is not None:
+            follower.stop()
+    wall = time.monotonic() - t_start
+    launches = snap_kernel.latlng_to_cell_kernel.launches
+    m = rt.metrics
+    want = m["batches"] if dev.type == "cuda" else 0
+    if launches != want or m["events_valid"] != MAIN_EVENTS:
+        raise AssertionError(f"serve run (view {view}): {launches} snap "
+                             f"launches in {m['batches']} batches, "
+                             f"{m['events_valid']} events")
+    out = {"view": view, "served": served, "delta_log": cfg.delta_log,
+           "events": m["events_valid"],
+           "batches": m["batches"], "wall_s": wall,
+           "events_per_s": m["events_valid"] / wall,
+           "p50_batch_ms": m["p50_batch_ms"], "snap_launches": launches,
+           "writer": {k: m[k] for k in ("tiles_written", "positions_written",
+                                        "sink_backpressure_ms")},
+           "p50_span_ms": {k: m["p50_span_ms"][k] for k in (
+               "poll", "feed", "dispatch", "positions", "sink", "prefetch")}}
+    if served:
+        try:
+            out.update(serve_checks(torch, rt, store, cfg, server[2],
+                                    follower, delta_log is not None))
+        finally:
+            stop_background(server[0], server[1])
+    del rt, store
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_checks(torch, rt, store, cfg, port, follower, need_deltas: bool):
+    """What the serve phase holds the view-on run to, and its read-path
+    numbers: the followed deltas replay to /api/tiles/latest (with
+    ``need_deltas``, some of them as delta-mode bodies that carried
+    cells), the writer-fed body equals a serve-only app's over the same
+    store, the binary frame decodes to the JSON body, the rollups
+    conserve, the ETag answers 304, positions_latest holds every vehicle;
+    the view's apply time per flush and each route's time and bytes."""
+    from heatmap_tpu_torch.serve import api as tapi
+    from heatmap_tpu_torch.serve import wire
+
+    view = rt.matview
+    follower.poll()     # the last changes, after the writer drained
+    status, hdr, latest, latest_cold_ms = http_get(port, "/api/tiles/latest")
+    feats = {f["properties"]["cellId"]: f
+             for f in json.loads(latest)["features"]}
+    if status != 200 or follower.cells != feats or not feats:
+        raise AssertionError(f"followed deltas ({len(follower.cells)} "
+                             f"cells, {follower.modes}) differ from "
+                             f"/api/tiles/latest ({len(feats)} cells)")
+    if need_deltas and not follower.deltas_with_cells:
+        raise AssertionError(f"no delta-mode poll carried a cell "
+                             f"({follower.modes}, delta log "
+                             f"{cfg.delta_log}): the replay held only "
+                             f"full bodies")
+    base_total = sum(f["properties"]["count"] for f in feats.values())
+    if base_total != MAIN_EVENTS:
+        raise AssertionError(f"the latest window holds {base_total} of "
+                             f"{MAIN_EVENTS} events")
+    # the same store through a serve-only app (its view rebuilt by the
+    # StoreViewRefresher): the same features; the order of a store scan
+    # may differ from the writer's apply order
+    app = tapi.make_wsgi_app(store, cfg)
+    try:
+        s, body = wsgi_get(app, "/api/tiles/latest")
+    finally:
+        app.close()
+    scan = {f["properties"]["cellId"]: f
+            for f in json.loads(body)["features"]}
+    if not s.startswith("200") or scan != feats:
+        raise AssertionError("the serve-only app's /api/tiles/latest "
+                             "differs from the writer-fed one's")
+    # the binary frame decodes to the JSON body's docs
+    status, bhdr, frame, bin_cold_ms = http_get(
+        port, "/api/tiles/latest?fmt=bin")
+    dec = wire.decode(frame)
+    if (tapi._features_collection_json(dec["docs"]).encode() != latest
+            or bhdr["ETag"] != hdr["ETag"][:-1] + '.bin"'
+            or dec["seq"] != view.seq):
+        raise AssertionError("the binary frame does not decode to the JSON "
+                             "body")
+    rollups = {}
+    for res in range(cfg.h3_res - cfg.pyramid_levels, cfg.h3_res):
+        _, _, b, _ = http_get(port, f"/api/tiles/latest?res={res}")
+        fs = json.loads(b)["features"]
+        total = sum(f["properties"]["count"] for f in fs)
+        if total != base_total:
+            raise AssertionError(f"res={res} rollup counts {total} != "
+                                 f"{base_total}")
+        rollups[res] = len(fs)
+    status, _, b, _ = http_get(port, "/api/tiles/latest",
+                               {"If-None-Match": hdr["ETag"]})
+    if status != 304 or b:
+        raise AssertionError(f"If-None-Match answered {status}")
+    _, _, pos, pos_ms = http_get(port, "/api/positions/latest")
+    vehicles = {f["properties"]["vehicleId"]
+                for f in json.loads(pos)["features"]}
+    want = {f"veh-{k}" for k in range(SERVE_SOURCE["n_vehicles"])}
+    if vehicles != want:
+        raise AssertionError(f"/api/positions/latest holds {len(vehicles)} "
+                             f"of {len(want)} vehicles")
+    # the read path's numbers (view warm: cached renders after the first)
+    timed = {}
+    for name, path, n in (("latest_json", "/api/tiles/latest", 11),
+                          ("latest_bin", "/api/tiles/latest?fmt=bin", 11),
+                          ("delta_full", "/api/tiles/delta?since=0", 5),
+                          ("positions", "/api/positions/latest", 5)):
+        runs = [http_get(port, path) for _ in range(n)]
+        timed[name] = {"p50_ms": float(np.median([r[3] for r in runs])),
+                       "bytes": len(runs[0][2])}
+    timed["latest_json"]["cold_ms"] = latest_cold_ms
+    timed["latest_bin"]["cold_ms"] = bin_cold_ms
+    timed["positions"]["first_ms"] = pos_ms
+    apply = view._h_apply
+    health = json.loads(http_get(port, "/healthz")[2])
+    return {"view_cells": view.cells_live(), "view_seq": view.seq,
+            "view_applies": apply.count,
+            "view_apply_p50_ms": apply.quantile(0.5) * 1e3,
+            "view_apply_total_s": apply.sum,
+            "followed": {"polls": len(follower.poll_ms),
+                         "modes": follower.modes,
+                         "deltas_with_cells": follower.deltas_with_cells,
+                         "delta_cells": follower.delta_cells,
+                         "p50_poll_ms": float(np.median(follower.poll_ms)),
+                         "replay_equals_latest": True},
+            "rollup_cells": rollups, "routes": timed,
+            "healthz": health["status"], "vehicles": len(vehicles),
+            "serve_only_equal": True, "bin_decodes_to_json": True}
+
+
+# A flush at these widths upserts ~8,000 res-9 cells, more than the
+# default 4,096-entry delta log holds, so a follower there gets only full
+# bodies; a log of 2^16 holds eight such flushes, and the second served
+# run follows real deltas through it
+SERVE_DELTA_LOG = 1 << 16
+# (view, served, delta_log) of each serve-phase run, in turns: the view
+# off, the view on, the view on with the server and a follower (the
+# default delta log, then SERVE_DELTA_LOG), and back
+SERVE_RUNS = ((False, False, None), (True, False, None), (True, True, None),
+              (True, True, SERVE_DELTA_LOG), (True, False, None),
+              (False, False, None))
+
+
+def phase_serve(torch, snap_kernel, ckpt_root, dev):
+    """synthetic_backfill with the view off, on, and on with the port's
+    server and a delta follower running, in turns on the same card:
+    events/s and p50 batch of each, and the served runs' read-path
+    checks."""
+    runs = [serve_run(torch, snap_kernel, f"{ckpt_root}/serve{i}", dev,
+                      view, served, delta_log)
+            for i, (view, served, delta_log) in enumerate(SERVE_RUNS)]
+    out = {"phase": "serve", "source": dict(SERVE_SOURCE, t0="now-aligned"),
+           "runs": runs}
+    for label, kind in (("view_off", (False, False, None)),
+                        ("view_on", (True, False, None)),
+                        ("served", (True, True, None)),
+                        ("served_log2_16", (True, True, SERVE_DELTA_LOG))):
+        mine = [r for r, k in zip(runs, SERVE_RUNS) if k == kind]
+        out[f"events_per_s_{label}"] = [r["events_per_s"] for r in mine]
+        out[f"p50_batch_ms_{label}"] = [r["p50_batch_ms"] for r in mine]
+    emit(out)
+    return out
+
 def main() -> int:
     import torch
 
@@ -2226,6 +2544,7 @@ def main() -> int:
         formats = phase_formats(torch, run_pipeline, snap_kernel, ckpt_root,
                                 dev)
         infer = phase_infer(torch, run_pipeline, snap_kernel, ckpt_root, dev)
+        serve = phase_serve(torch, snap_kernel, ckpt_root, dev)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     # the rounds kernel's numbers at the main path's shape: the round set
@@ -2251,6 +2570,7 @@ def main() -> int:
         "launches_formats_phase": {
             k: v["snap_launches"] for k, v in formats["runs"].items()},
         "launches_infer_phase": infer["snap_launches"],
+        "launches_serve_phase": [r["snap_launches"] for r in serve["runs"]],
         "max_abs_err": main_err,
         "identical_share": main_share,
         "ms": snap["ms"],

@@ -74,8 +74,13 @@ UNPORTED_KNOBS = {
     "HEATMAP_AUDIT": (_flag_on, "A6, observability"),
     "HEATMAP_QUALITY": (_flag_on, "A5, the inference quality "
                                   "observatory, after A4"),
-    "HEATMAP_REPL_DIR": (bool, "A4, the serve and query tier"),
-    "HEATMAP_HIST_DIR": (bool, "A4, the serve and query tier"),
+    "HEATMAP_REPL_DIR": (bool, "A4, the serve tier's second slice"),
+    "HEATMAP_HIST_DIR": (bool, "A4, the serve tier's second slice"),
+    "HEATMAP_REPL_FEED": (bool, "A4, the serve tier's second slice"),
+    "HEATMAP_SERVE_CORE": (lambda v: v == "epoll",
+                           "A4, the serve tier's second slice"),
+    "HEATMAP_SERVE_WORKERS": (lambda v: int(v) > 1,
+                              "A4, the serve tier's second slice"),
     "HEATMAP_TSDB": (_flag_on, "A6, observability"),
 }
 
@@ -122,6 +127,9 @@ class Config:
     # batches polled, padded and copied to the device ahead of the fold
     prefetch_batches: int = 1
     trigger_ms: int = 0                # 0 = as fast as possible (ref default)
+    refresh_ms: int = 5000             # the UI's poll period (REFRESH_MS)
+    serve_host: str = "127.0.0.1"
+    serve_port: int = 5000             # 0 binds an ephemeral port
     store: str = "auto"                # "auto" | "memory" | "mongo" | "jsonl"
     # HEATMAP_SHARD_RES: H3 parent resolution of a partition key; -1 = the
     # snap resolution itself.  Read by the logical entity partition
@@ -142,12 +150,91 @@ class Config:
     entity_stop_s: float = 120.0       # HEATMAP_ENTITY_STOP_S: filtered
                                        # speed below the stop gate this long
                                        # (after moving) raises "stopped"
+    query_view: bool = True            # HEATMAP_QUERY_VIEW: maintain the
+                                       # materialized tile view (query/
+                                       # matview) feeding /api/tiles/
+                                       # delta, ETag 304s, SSE, topk and
+                                       # ?res= rollups; 0 disables — reads
+                                       # fall back to direct Store renders
+    delta_log: int = 4096              # HEATMAP_DELTA_LOG: per-grid
+                                       # changed-cell changelog depth
+                                       # backing /api/tiles/delta
+    pyramid_levels: int = 2            # HEATMAP_PYRAMID_LEVELS: coarser
+                                       # H3 parent resolutions the view
+                                       # maintains per grid for ?res=
+                                       # zoom-out; 0 disables rollups
+    view_poll_ms: int = 1000           # HEATMAP_VIEW_POLL_MS: serve-only
+                                       # view rebuild TTL (covers stores
+                                       # written by OTHER processes)
+    sse_max_clients: int = 64          # HEATMAP_SSE_MAX_CLIENTS: open SSE
+                                       # connections before new ones get
+                                       # 503 (each holds a server thread)
+    sse_heartbeat_s: float = 15.0      # HEATMAP_SSE_HEARTBEAT_S: SSE
+                                       # comment-ping cadence
+    sse_queue: int = 64                # HEATMAP_SSE_QUEUE: bounded per-
+                                       # subscriber send queue (frames);
+                                       # an overflow sheds the subscriber
+                                       # with `event: lagged`
+    sse_send_timeout_s: float = 30.0   # HEATMAP_SSE_SEND_TIMEOUT_S: socket
+                                       # send timeout on SSE connections;
+                                       # 0 disables
+    serve_max_inflight: int = 256      # HEATMAP_SERVE_MAX_INFLIGHT: in-
+                                       # flight render/encode requests on
+                                       # the data endpoints before 503 +
+                                       # Retry-After; 0 disables
+    serve_workers: int = 1             # HEATMAP_SERVE_WORKERS: serve worker
+                                       # processes (> 1 not ported yet)
+    serve_core: str = "thread"         # HEATMAP_SERVE_CORE: "thread"
+                                       # (wsgiref); "epoll" not ported yet
+    cq: bool = True                    # HEATMAP_CQ: the continuous spatial
+                                       # query engine (query/continuous)
+                                       # on view-backed serve surfaces;
+                                       # 0 removes the endpoints
+    cq_max_queries: int = 1 << 20      # HEATMAP_CQ_MAX_QUERIES
+    cq_ttl_s: float = 3600.0           # HEATMAP_CQ_TTL_S: default standing-
+                                       # query TTL (0 = never expires)
+    cq_events: int = 256               # HEATMAP_CQ_EVENTS: match records
+                                       # buffered per query for resume
+    cq_max_cells: int = 4096           # HEATMAP_CQ_MAX_CELLS: compiled
+                                       # cell-set budget per query
+
+    def __post_init__(self):
+        # each serve knob has one ported value: a Config that asks for
+        # another (through the env, load_config's overrides or
+        # dataclasses.replace) raises here instead of being served by
+        # one thread-core process
+        if self.serve_workers < 1:
+            raise ValueError(
+                f"HEATMAP_SERVE_WORKERS must be >= 1, "
+                f"got {self.serve_workers}")
+        if self.serve_core not in ("thread", "epoll"):
+            raise ValueError(
+                f"HEATMAP_SERVE_CORE must be 'thread' or 'epoll', "
+                f"got {self.serve_core!r}")
+        for knob, value, ported in (
+                ("HEATMAP_SERVE_WORKERS", self.serve_workers, 1),
+                ("HEATMAP_SERVE_CORE", self.serve_core, "thread")):
+            if value != ported:
+                raise NotImplementedError(
+                    f"{knob}={value!r}: not ported to heatmap_tpu_torch "
+                    f"yet (ROADMAP A4, the serve tier's second slice)")
 
     def pair_grid(self, res: int, wmin: int) -> str:
         """Sink grid label for a (res, window) pair: "h3r{res}" for the
         reference tile window, "h3r{res}m{wmin}" otherwise."""
         return (f"h3r{res}" if wmin == self.tile_minutes
                 else f"h3r{res}m{wmin}")
+
+    def default_grid(self) -> str:
+        """The grid bare /api/tiles/latest serves: the configured h3_res
+        (or the first resolution), under the reference tile window when
+        it is configured, else the first window — always a grid the
+        runtime actually writes."""
+        res_list = self.resolutions or (self.h3_res,)
+        res = self.h3_res if self.h3_res in res_list else res_list[0]
+        wins = self.windows_minutes or (self.tile_minutes,)
+        wmin = self.tile_minutes if self.tile_minutes in wins else wins[0]
+        return self.pair_grid(res, wmin)
 
 
 def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
@@ -194,6 +281,33 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         entity_shards=_int(e, "HEATMAP_ENTITY_SHARDS", Config.entity_shards),
         entity_stop_s=_float(e, "HEATMAP_ENTITY_STOP_S",
                              Config.entity_stop_s),
+        refresh_ms=_int(e, "REFRESH_MS", Config.refresh_ms),
+        serve_host=e.get("SERVE_HOST", Config.serve_host),
+        serve_port=_int(e, "SERVE_PORT", Config.serve_port),
+        query_view=e.get("HEATMAP_QUERY_VIEW", "1") not in ("0", "false", ""),
+        delta_log=_int(e, "HEATMAP_DELTA_LOG", Config.delta_log),
+        pyramid_levels=_int(e, "HEATMAP_PYRAMID_LEVELS",
+                            Config.pyramid_levels),
+        view_poll_ms=_int(e, "HEATMAP_VIEW_POLL_MS", Config.view_poll_ms),
+        sse_max_clients=_int(e, "HEATMAP_SSE_MAX_CLIENTS",
+                             Config.sse_max_clients),
+        sse_heartbeat_s=_float(e, "HEATMAP_SSE_HEARTBEAT_S",
+                               Config.sse_heartbeat_s),
+        sse_queue=_int(e, "HEATMAP_SSE_QUEUE", Config.sse_queue),
+        sse_send_timeout_s=_float(e, "HEATMAP_SSE_SEND_TIMEOUT_S",
+                                  Config.sse_send_timeout_s),
+        serve_max_inflight=_int(e, "HEATMAP_SERVE_MAX_INFLIGHT",
+                                Config.serve_max_inflight),
+        serve_workers=_int(e, "HEATMAP_SERVE_WORKERS",
+                           Config.serve_workers),
+        serve_core=e.get("HEATMAP_SERVE_CORE", Config.serve_core),
+        cq=e.get("HEATMAP_CQ", "1") not in ("0", "false", ""),
+        cq_max_queries=_int(e, "HEATMAP_CQ_MAX_QUERIES",
+                            Config.cq_max_queries),
+        cq_ttl_s=_float(e, "HEATMAP_CQ_TTL_S", Config.cq_ttl_s),
+        cq_events=_int(e, "HEATMAP_CQ_EVENTS", Config.cq_events),
+        cq_max_cells=_int(e, "HEATMAP_CQ_MAX_CELLS",
+                          Config.cq_max_cells),
     )
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -241,4 +355,48 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         raise ValueError(
             f"HEATMAP_ENTITY_STOP_S must be > 0, "
             f"got {cfg.entity_stop_s}")
+    if cfg.delta_log < 1:
+        raise ValueError(
+            f"HEATMAP_DELTA_LOG must be >= 1, got {cfg.delta_log}")
+    if not (0 <= cfg.pyramid_levels <= 15):
+        raise ValueError(
+            f"HEATMAP_PYRAMID_LEVELS must be in 0..15, "
+            f"got {cfg.pyramid_levels}")
+    if cfg.view_poll_ms < 0:
+        raise ValueError(
+            f"HEATMAP_VIEW_POLL_MS must be >= 0, got {cfg.view_poll_ms}")
+    if cfg.sse_max_clients < 1:
+        raise ValueError(
+            f"HEATMAP_SSE_MAX_CLIENTS must be >= 1, "
+            f"got {cfg.sse_max_clients}")
+    if cfg.sse_heartbeat_s <= 0:
+        raise ValueError(
+            f"HEATMAP_SSE_HEARTBEAT_S must be > 0, "
+            f"got {cfg.sse_heartbeat_s}")
+    if cfg.sse_queue < 1:
+        raise ValueError(
+            f"HEATMAP_SSE_QUEUE must be >= 1, got {cfg.sse_queue}")
+    if cfg.sse_send_timeout_s < 0:
+        raise ValueError(
+            f"HEATMAP_SSE_SEND_TIMEOUT_S must be >= 0 (0 = no "
+            f"timeout), got {cfg.sse_send_timeout_s}")
+    if cfg.serve_max_inflight < 0:
+        raise ValueError(
+            f"HEATMAP_SERVE_MAX_INFLIGHT must be >= 0 (0 = "
+            f"unbounded), got {cfg.serve_max_inflight}")
+    if cfg.cq_max_queries < 1:
+        raise ValueError(
+            f"HEATMAP_CQ_MAX_QUERIES must be >= 1, "
+            f"got {cfg.cq_max_queries}")
+    if cfg.cq_ttl_s < 0:
+        raise ValueError(
+            f"HEATMAP_CQ_TTL_S must be >= 0 (0 = no expiry), "
+            f"got {cfg.cq_ttl_s}")
+    if cfg.cq_events < 1:
+        raise ValueError(
+            f"HEATMAP_CQ_EVENTS must be >= 1, got {cfg.cq_events}")
+    if cfg.cq_max_cells < 1:
+        raise ValueError(
+            f"HEATMAP_CQ_MAX_CELLS must be >= 1, "
+            f"got {cfg.cq_max_cells}")
     return cfg

@@ -16,6 +16,8 @@ M_SQRT7 = 2.6457513110645905905016157536392604257102
 M_AP7_ROT_RADS = 0.333473172251832115336090755351601070065900389
 M_SIN60 = 0.8660254037844386467637231707529361834714
 
+EPSILON = 1.0e-16
+
 # Icosahedron face centers in (lat, lng) radians.
 FACE_CENTER_GEO = np.array([
     [0.803582649718989942, 1.248397419617396099],     # face  0

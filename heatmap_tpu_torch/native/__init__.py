@@ -8,8 +8,9 @@ decoder of ``decoder.cpp`` with its persistent intern tables (JSON lines,
 ``decode``; the binary event layout of ``stream/binfmt.py``,
 ``decode_binary``) and its columnar string-table parser
 (``strtab_offsets_native``), the BSON update-op encoders of
-``tile_ops.cpp`` and ``positions_ops.cpp``, and the f64 H3 snap of
-``h3_snap.cpp`` (``NativeH3Snap``).
+``tile_ops.cpp`` and ``positions_ops.cpp``, the serve tier's binary
+wire-frame column writer of ``tile_ops.cpp`` (``NativeWireOps``), and the
+f64 H3 snap of ``h3_snap.cpp`` (``NativeH3Snap``).
 
 The library is built with g++ at first use by ``heatmap_tpu_torch._build``
 (``load(NATIVE_LIB)``: ``build/heatmap_tpu_torch/native-<hash>.so``, the
@@ -18,8 +19,8 @@ g++ or a failed compile raises ``KernelBuildError`` from the first call.
 The Python codecs stay beside these as their plain versions
 (``kafka.records.crc32c_plain``, ``stream.source._decode_raw_values``,
 ``stream.binfmt.decode_events``, ``stream.colfmt``'s Python string-table
-parse, ``sink.base.Store``'s Python doc paths), reached only when a caller
-asks.
+parse, ``sink.base.Store``'s Python doc paths, ``serve.wire``'s
+``encode_body_py``), reached only when a caller asks.
 """
 
 from __future__ import annotations
@@ -77,6 +78,14 @@ _SIGNATURES = {
     "enc_position_ops": ([_f32p, _f32p, _i64p, ctypes.c_int64, _u8p, _i64p,
                           _u8p, _i64p, _u8p, ctypes.c_int64, _i64p,
                           ctypes.POINTER(ctypes.c_int64)], ctypes.c_int64),
+    "enc_wire_cols": ([_u8p, ctypes.c_int64, _i64p, _i64p,
+                       ctypes.c_int32, _i64p,
+                       ctypes.c_int32, _i64p, ctypes.c_int64,
+                       ctypes.c_int32, _i64p, ctypes.c_int64,
+                       _i64p, ctypes.c_int64,
+                       _i64p, ctypes.c_int64,
+                       _u8p, ctypes.c_int64,
+                       ctypes.POINTER(ctypes.c_int64)], ctypes.c_int64),
     "h3_snap_f32": (_SNAP_ARGS, None),
     # the scalar entry: the reference path the AVX-512 block path is held
     # against
@@ -404,6 +413,41 @@ class NativePositionOps:
         out, _ = _encode_with_resize(
             call, n * self._DOC_BOUND + 3 * str_bytes + 1024, "position")
         return out[:int(nbytes.value)].tobytes(), offsets[:n].copy(), n
+
+
+class NativeWireOps:
+    """Binary wire-frame column writer (tile_ops.cpp ``enc_wire_cols``) —
+    the serve tier's compact tile/delta frame body.  The caller
+    (serve/wire.py) assembles the header and makes the per-column
+    fixed-point-vs-f64 decision; this writes the varint/zigzag/raw
+    columns, byte-identical to the Python writer ``encode_body_py``
+    (differential-tested)."""
+
+    def __init__(self):
+        self._lib = _lib()
+
+    def encode_body(self, flags, deltas, counts, s_enc, speeds,
+                    p_enc, p95, d_enc, stddev, wmin,
+                    overrides) -> bytes:
+        n = len(flags)
+        nbytes = ctypes.c_int64(0)
+
+        def call(out, cap):
+            return self._lib.enc_wire_cols(
+                flags, n, deltas, counts,
+                s_enc, speeds,
+                p_enc, p95, len(p95),
+                d_enc, stddev, len(stddev),
+                wmin, len(wmin),
+                overrides, len(overrides),
+                out, cap, ctypes.byref(nbytes))
+
+        # worst case per doc: flag 1B + delta/count varints <= 20B +
+        # f64 speed 8B (+ subset columns sized separately)
+        cap = (n * 32 + 8 * (len(p95) + len(stddev) + len(overrides))
+               + 10 * len(wmin) + 64)
+        out, _ = _encode_with_resize(call, cap, "wire")
+        return out[:int(nbytes.value)].tobytes()
 
 
 class NativeH3Snap:

@@ -1,8 +1,9 @@
 """AsyncWriter — background sink thread overlapping store I/O with compute.
 
-A copy of ``heatmap_tpu/sink/writer.py`` without its materialized-view and
-audit hooks (their subsystems are not ported) and without its metrics
-registry: the runtime merges ``counters`` into its metrics.
+A copy of ``heatmap_tpu/sink/writer.py`` without its audit hooks (the
+integrity observatory is not ported) and without its metrics registry:
+the runtime merges ``counters`` into its metrics.  The materialized tile
+view (``view=``) is fed on this thread right after each tile write.
 
 The device step for batch N+1 runs while batch N's docs are upserted; the
 runtime's checkpoint commit waits on ``drain()`` so offsets only advance
@@ -29,8 +30,20 @@ log = logging.getLogger(__name__)
 
 class AsyncWriter:
     def __init__(self, store: Store, max_queue: int = 64,
-                 retries: int = 3, backoff_s: float = 0.2):
+                 retries: int = 3, backoff_s: float = 0.2, view=None):
         self.store = store
+        # materialized tile view (query.matview): fed on THIS thread
+        # right after each tile write returns from the store — i.e.
+        # strictly after the rows are durable, so the query tier never
+        # exposes a tile a Store read-back couldn't return.  A view
+        # apply failure poisons the VIEW only (serving falls back to
+        # Store renders); read-path trouble never takes the pipeline
+        # down.
+        self.view = view
+        # view seq recorded right after each successful apply.  Written
+        # only on the writer thread; torn reads are impossible (int
+        # store).
+        self.last_view_seq: int | None = None
         self.retries = retries
         self.backoff_s = backoff_s
         self._q: queue.Queue = queue.Queue(maxsize=max_queue)
@@ -93,6 +106,9 @@ class AsyncWriter:
                     n = self._apply(kind, docs)
                     if kind.startswith("tiles"):
                         self._written_tiles += n
+                        if n and self.view is not None \
+                                and not self.view.poisoned:
+                            self._feed_view(kind, docs)
                     else:
                         self._written_positions += n
             except BaseException as e:  # poisons the writer permanently
@@ -101,6 +117,23 @@ class AsyncWriter:
                 self._exc = e
             finally:
                 self._q.task_done()
+
+    def _feed_view(self, kind: str, docs) -> None:
+        try:
+            if kind == "tiles_packed":
+                # decoded once, here, with the same oracle the portable
+                # store write path uses, so view content is exactly what
+                # a Store read-back would return
+                from heatmap_tpu_torch.sink.base import packed_tile_docs
+
+                body, meta = docs
+                docs = packed_tile_docs(body, meta)
+            self.view.apply_docs(docs)
+            self.last_view_seq = getattr(self.view, "seq", None)
+        except Exception:
+            log.exception("materialized view apply failed; query tier "
+                          "falls back to store renders")
+            self.view.poison()
 
     @property
     def poisoned(self) -> bool:

@@ -22,8 +22,10 @@ With ``HEATMAP_REDUCERS=count,kalman`` the inference engine
 (``infer.InferenceEngine``) folds each batch's host columns after the
 step's ring flush and before the fold's dispatch (the ``infer`` span): its
 rounds scan runs on a CUDA stream of the engine's own, so its wait for the
-outputs does not queue behind the fold.  Its anomalies are drained and
-dropped (the port has no view yet; the engine keeps their counts), its
+outputs does not queue behind the fold.  Its anomalies are published into
+the materialized view on the writer thread, after the tile writes handed
+over before them (``TileMatView.publish_anomalies`` via ``submit_mark``),
+where the continuous-query engine's anomaly queries read them; its
 per-cell velocity field rides the tile docs of each flush as ``vxKmh`` /
 ``vyKmh``, and its entity table commits with the window state as
 ``extra-infer.npz``.  With ``count`` alone nothing of it is built.
@@ -75,8 +77,15 @@ x 16).  Overflow past the ceiling is counted and logged (``on_overflow=
 "error"``) or stops the run without a commit (``"fail"``).  A new runtime
 resumes from the latest commit in ``checkpoint_dir`` (``_maybe_resume``):
 the offset, the watermark and each pair's slab, grown to a larger
-snapshot or padded to a larger configuration.  The mesh and the
-observability stack of the reference runtime are not ported yet.
+snapshot or padded to a larger configuration.
+
+With ``HEATMAP_QUERY_VIEW`` on (the default) the runtime keeps the
+materialized tile view (``matview``, query.matview), which the writer
+thread feeds after each durable tile write and the serve tier reads.  The
+step thread publishes a plain-dict metrics snapshot at each batch end
+(``metrics_snapshot``): an HTTP thread reads that, never the runtime's
+device state.  The mesh and the observability stack of the reference
+runtime are not ported yet.
 """
 
 from __future__ import annotations
@@ -96,6 +105,7 @@ from heatmap_tpu_torch.engine import step
 from heatmap_tpu_torch.engine.multi import MultiAggregator, stats_from_packed
 from heatmap_tpu_torch.engine.state import TileState, to_host
 from heatmap_tpu_torch.engine.step import FUTURE_WINDOWS, I32_MIN, EmitRing
+from heatmap_tpu_torch.obs.registry import Registry
 from heatmap_tpu_torch.sink.base import (PositionRows, Store, TilePackMeta,
                                          packed_tile_docs)
 from heatmap_tpu_torch.sink.writer import AsyncWriter
@@ -336,8 +346,27 @@ class MicroBatchRuntime:
         # offsets as of the last DISPATCHED batch: checkpoints commit
         # these, so a batch polled but not dispatched always replays
         self._offsets_dispatched = self.source.offset()
+        # the registry the view's and the serve tier's families live in
+        self.registry = Registry()
+        # the materialized tile view the writer thread feeds, under
+        # HEATMAP_QUERY_VIEW; no store scan here: the serve layer seeds
+        # a grid the view has not seen from the store on first access
+        self.matview = None
+        if cfg.query_view:
+            from heatmap_tpu_torch.query import TileMatView
+
+            self.matview = TileMatView(
+                delta_log=cfg.delta_log,
+                pyramid_levels=cfg.pyramid_levels,
+                registry=self.registry)
         # the sink thread: tiles at each flush, positions at each dispatch
-        self.writer = AsyncWriter(store)
+        self.writer = AsyncWriter(store, view=self.matview)
+        # the metrics snapshot the step thread publishes at each batch end
+        # (metrics_snapshot); HTTP threads read it under this lock
+        self._t_start = time.monotonic()
+        self._snap_lock = threading.Lock()
+        self._snapshot: dict = {}
+        self._publish_snapshot()
 
     # ------------------------------------------------------------------
     @property
@@ -538,6 +567,35 @@ class MicroBatchRuntime:
         out["p50_batch_ms"] = p50(self.batch_ms)
         out["p50_span_ms"] = {k: p50(v) for k, v in self.span_ms.items()}
         return out
+
+    def _publish_snapshot(self) -> None:
+        """Publish the step thread's metrics for readers on other threads,
+        under the reference's ``Metrics.snapshot()`` keys: the counters,
+        ``uptime_s``, ``events_per_sec``, the batch latency p50/p95 and
+        each span's p50 (ms, over the last 512 batches, the reference's
+        histogram window and pick rule).  Reads host lists only."""
+        def q(xs, qq):
+            xs = sorted(xs[-512:])
+            return xs[min(len(xs) - 1, int(qq * len(xs)))] if xs else 0.0
+
+        elapsed = max(time.monotonic() - self._t_start, 1e-9)
+        snap = dict(self.counters)
+        snap["uptime_s"] = round(elapsed, 3)
+        snap["events_per_sec"] = round(
+            self.counters.get("events_valid", 0) / elapsed, 1)
+        snap["batch_latency_p50_ms"] = round(q(self.batch_ms, 0.5), 3)
+        snap["batch_latency_p95_ms"] = round(q(self.batch_ms, 0.95), 3)
+        for k, xs in self.span_ms.items():
+            if xs:
+                snap[f"span_{k}_p50_ms"] = round(q(xs, 0.5), 3)
+        with self._snap_lock:
+            self._snapshot = snap
+
+    def metrics_snapshot(self) -> dict:
+        """The last published metrics snapshot (a copy): safe from any
+        thread, never waits on the device."""
+        with self._snap_lock:
+            return dict(self._snapshot)
 
     def _cutoff(self) -> int:
         return (self.max_event_ts - self.cfg.watermark_minutes * 60
@@ -790,6 +848,7 @@ class MicroBatchRuntime:
                  else self._next_batch())
         if entry is None:
             self.flush_pending("idle")
+            self._publish_snapshot()
             return False
         pull_s = sink_s = 0.0
         grow_due = self._grow_would_trigger()
@@ -807,7 +866,15 @@ class MicroBatchRuntime:
             # before this one
             t_inf = time.monotonic()
             self.infer.fold_batch(entry.cols)
-            self.infer.drain_anomalies()  # no view to publish them to yet
+            ievents = self.infer.drain_anomalies()
+            if ievents and self.matview is not None:
+                # anomaly records ride the writer thread like every view
+                # mutation (single-writer discipline), after the tile
+                # writes handed over before them
+                grid = self.cfg.default_grid()
+                view = self.matview
+                self.writer.submit_mark(
+                    lambda: view.publish_anomalies(grid, ievents))
             infer_s = time.monotonic() - t_inf
         t2 = time.monotonic()
         feed = entry.feed
@@ -898,6 +965,7 @@ class MicroBatchRuntime:
             self._fold_events.append(events)
             self._read_fold_events(wait=False)
         self.batch_ms.append((t6 - t0) * 1e3)
+        self._publish_snapshot()
         return True
 
     def _account(self, pair, packed_pair: np.ndarray, epoch: int) -> int:
@@ -980,6 +1048,7 @@ class MicroBatchRuntime:
                     self.step_once()
                 if not self.writer.poisoned:
                     self.flush_pending("close")
+                    self._publish_snapshot()
             finally:
                 if not failed():
                     self._checkpoint()

@@ -27,6 +27,7 @@ The bars:
 - the counts summed over all docs equal on both sides (conservation).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -328,6 +329,11 @@ import heatmap_tpu_torch._build
 import heatmap_tpu_torch.hexgrid.snap_kernel
 import heatmap_tpu_torch.profile_fold
 import heatmap_tpu_torch.models.bench_pipelines
+import heatmap_tpu_torch.models.demo
+import heatmap_tpu_torch.serve.__main__
+import heatmap_tpu_torch.query.continuous
+import heatmap_tpu_torch.query.geom
+from heatmap_tpu_torch.serve import make_wsgi_app
 from heatmap_tpu_torch.kafka import KafkaClient, Record
 from heatmap_tpu_torch.models.pipelines import PIPELINES
 from heatmap_tpu_torch.stream.source import KafkaSource, MemorySource
@@ -359,6 +365,15 @@ rt = MicroBatchRuntime(cfg, SyntheticSource(n_events=2048), store,
                        device="cpu")
 rt.run()
 assert store.n_tiles > 0 and store.n_positions > 0
+# the read path over the run's writer-fed view, in process
+app = make_wsgi_app(store, cfg, rt)
+for path in ("/api/tiles/latest", "/api/tiles/delta", "/metrics"):
+    out = []
+    body = b"".join(app({"PATH_INFO": path, "QUERY_STRING": "",
+                         "REQUEST_METHOD": "GET"},
+                        lambda st, h, e=None: out.append(st)))
+    assert out[0].startswith("200") and body, (path, out)
+app.close()
 shutil.rmtree(cfg.checkpoint_dir)
 
 # the same run through the writer into Mongo over the wire client and the
@@ -457,6 +472,9 @@ def test_entry_point_default_pipeline_matches_jax(monkeypatch):
     ("HEATMAP_REPL_DIR", "repl-feed", ""),
     ("HEATMAP_HIST_DIR", "history", ""),
     ("HEATMAP_TSDB", "1", "0"),
+    ("HEATMAP_SERVE_CORE", "epoll", "thread"),
+    ("HEATMAP_SERVE_WORKERS", "2", "1"),
+    ("HEATMAP_REPL_FEED", "repl-feed", ""),
 ])
 def test_unported_knob_raises_by_name(knob, on, off):
     """C2: a knob that turns on a subsystem the port lacks raises, naming
@@ -467,6 +485,20 @@ def test_unported_knob_raises_by_name(knob, on, off):
     assert "ROADMAP A" in str(e.value)
     load_config({knob: off})
     jax_load_config({knob: off})
+
+
+@pytest.mark.parametrize("field,value,knob", [
+    ("serve_core", "epoll", "HEATMAP_SERVE_CORE"),
+    ("serve_workers", 4, "HEATMAP_SERVE_WORKERS"),
+])
+def test_unported_serve_field_raises_past_the_env(field, value, knob):
+    """The unported serve values raise when they come as load_config
+    overrides or through dataclasses.replace, not only from the env."""
+    with pytest.raises(NotImplementedError, match=knob) as e:
+        load_config({}, **{field: value})
+    assert "ROADMAP A4" in str(e.value)
+    with pytest.raises(NotImplementedError, match=knob):
+        dataclasses.replace(load_config({}), **{field: value})
 
 
 @pytest.mark.parametrize("spec", ["count", "count,kalman", "kalman,count",
