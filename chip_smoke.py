@@ -163,6 +163,31 @@ Phases, one JSON line each:
                 and bytes of /api/tiles/latest (JSON and binary, cached
                 after the first render), /api/tiles/delta from 0 at the
                 full view size, /api/positions/latest.
+13. repl        the serve tier's second slice: synthetic_backfill at the
+                serve phase's widths (delta log 2^16) with
+                HEATMAP_REPL_DIR and HEATMAP_HIST_DIR (the writer
+                publishes the view's feed, retires its segments into the
+                history log and compacts them on its compactor thread),
+                the writer's app serving /api/repl/* and /api/hist/*, a
+                replica fleet (``python -m heatmap_tpu_torch.serve
+                --workers 2``, HEATMAP_SERVE_CORE=epoll,
+                HEATMAP_REPL_FEED=http://<writer>), a thread-core replica
+                beside it, and a client following the fleet's
+                /api/tiles/delta every 100 ms.  Checks: one snap launch a
+                batch; after the writer closes and both workers reach its
+                seq, the fleet's /api/tiles/latest (JSON and ?fmt=bin) is
+                byte-equal to the writer's, ETag nonce out; the replayed
+                deltas equal it, and some delta bodies carried cells;
+                /api/tiles/range over the run's span sums to the events
+                on the writer and on the fleet; /api/tiles/at?seq=<final>
+                holds /latest's cells; /api/tiles/diff answers; the chunks
+                decode to the view's cells and counts; both workers
+                answered; the thread-core replica's bodies equal the
+                fleet's.  Printed: events/s and p50 batch beside the
+                serve phase's view-on runs, the replica lag (seqs and seconds, p50 and
+                max), the feed's bytes, rotations and snapshot bytes, the
+                compactor's seconds a segment and chunk bytes, and the
+                range, at and diff times.
 
 Then one line listing every kernel (launches on the main path and in
 every later phase, agreement with its plain version, its time, the plain
@@ -2488,6 +2513,363 @@ def phase_serve(torch, snap_kernel, ckpt_root, dev):
     emit(out)
     return out
 
+# the repl phase: the writer publishes the view's feed (HEATMAP_REPL_DIR)
+# and retires it into the history tier (HEATMAP_HIST_DIR); a replica fleet
+# of two epoll workers follows it over HTTP, and a thread-core replica
+# beside it; a client follows the fleet's /api/tiles/delta (through a
+# delta log of SERVE_DELTA_LOG, so its deltas carry cells)
+
+def start_fleet(args, env, what):
+    """``python -m heatmap_tpu_torch.serve`` with ``args``; returns (the
+    process, the port its log names)."""
+    import re
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "heatmap_tpu_torch.serve", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stderr=subprocess.PIPE, text=True)
+    pat = re.compile(r"(?:serve fleet: \d+ workers on|serving on) "
+                     r"http://127\.0\.0\.1:(\d+)/")
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        line = proc.stderr.readline()
+        if not line:
+            break
+        m = pat.search(line)
+        if m:
+            # drain the rest of its log so a full pipe never blocks it
+            import threading
+
+            threading.Thread(target=proc.stderr.read, daemon=True).start()
+            return proc, int(m.group(1))
+    stop_process(proc)
+    raise AssertionError(f"{what} never named its port")
+
+
+def stop_process(proc):
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+class LagProbe:
+    """Polls a replica's /healthz during the run: the replication lag in
+    seqs and seconds the follower reports."""
+
+    def __init__(self, port):
+        import threading
+
+        self.port = port
+        self.seq_lag: list = []
+        self.lag_s: list = []
+        self.error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="lag-probe")
+        self._thread.start()
+
+    def _run(self):
+        try:
+            while not self._stop.wait(0.25):
+                status, _, body, _ = http_get(self.port, "/healthz")
+                chk = json.loads(body)["checks"].get("repl_lag_s")
+                if chk is None or chk["value"] == "inf":
+                    continue    # not bootstrapped yet
+                self.seq_lag.append(chk["seq_lag"])
+                self.lag_s.append(chk["value"])
+        except BaseException as e:  # surfaced by stop()
+            self.error = e
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=120)
+        if self._thread.is_alive() or self.error is not None:
+            raise AssertionError("the lag probe failed") from self.error
+        if not self.lag_s:
+            raise AssertionError("the lag probe read no lag")
+        return {"seq_lag_p50": float(np.median(self.seq_lag)),
+                "seq_lag_max": max(self.seq_lag),
+                "lag_s_p50": float(np.median(self.lag_s)),
+                "lag_s_max": max(self.lag_s), "samples": len(self.lag_s)}
+
+
+def wait_replicas(port, seq, n_pids, timeout=300):
+    """Polls /debug/view until ``n_pids`` distinct workers behind the port
+    answered with ``seq`` applied; returns their pids."""
+    done = set()
+    deadline = time.monotonic() + timeout
+    while len(done) < n_pids:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"replicas at seq {seq}: {done} of "
+                                 f"{n_pids} workers")
+        v = json.loads(http_get(port, "/debug/view")[2])
+        if v["mode"] != "replica":
+            raise AssertionError(f"a worker serves in mode {v['mode']}")
+        if v["repl"]["applied_seq"] == seq:
+            done.add(v["pid"])
+        else:
+            time.sleep(0.05)
+    return done
+
+
+def etag_shape(etag):
+    """An ETag with its per-process nonce taken out."""
+    return etag.split(".", 1)[1]
+
+
+def timed_get(port, path, n=5):
+    runs = [http_get(port, path) for _ in range(n)]
+    if any(r[0] != 200 for r in runs):
+        raise AssertionError(f"{path} answered {runs[0][0]}: "
+                             f"{runs[0][2][:200]}")
+    return {"p50_ms": float(np.median([r[3] for r in runs])),
+            "first_ms": runs[0][3], "bytes": len(runs[0][2])}, runs[0]
+
+
+def dir_bytes(pattern):
+    import glob
+
+    paths = glob.glob(pattern)
+    return len(paths), sum(os.path.getsize(p) for p in paths)
+
+
+def repl_run(torch, snap_kernel, ckpt_dir, dev):
+    """synthetic_backfill with the feed and the history tier on, the
+    writer's app serving them, a two-worker epoll fleet and a thread-core
+    replica following it, and a delta client on the fleet."""
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.query import history as thist
+    from heatmap_tpu_torch.serve import start_background, stop_background
+    from heatmap_tpu_torch.serve import wire
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+    from heatmap_tpu_torch.stream.source import SyntheticSource
+
+    p = get_pipeline("synthetic_backfill")
+    feed, hist = f"{ckpt_dir}/feed", f"{ckpt_dir}/hist"
+    cfg = dataclasses.replace(p.config, checkpoint_dir=ckpt_dir,
+                              serve_port=0, repl_dir=feed, hist_dir=hist,
+                              delta_log=SERVE_DELTA_LOG)
+    t0 = (int(time.time()) // 300 - 1) * 300
+    store = MemoryStore()
+    snap_kernel.latlng_to_cell_kernel.launches = 0
+    t_phase = time.monotonic()
+    rt = MicroBatchRuntime(cfg, SyntheticSource(t0=t0, **SERVE_SOURCE),
+                           store, device=dev)
+    # the compactor's time per step, and the records each step ingested
+    steps = []
+    comp = rt.hist_compactor
+    comp_step = comp.step
+
+    def timed_step():
+        t = time.perf_counter()
+        n = comp_step()
+        steps.append((time.perf_counter() - t, n))
+        return n
+
+    comp.step = timed_step
+    httpd, thread, wport = start_background(store, cfg, rt)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env.update(HEATMAP_STORE="memory", SERVE_HOST="127.0.0.1",
+               HEATMAP_REPL_FEED=f"http://127.0.0.1:{wport}",
+               H3_RES=str(cfg.h3_res),
+               H3_RESOLUTIONS=",".join(map(str, cfg.resolutions)),
+               TILE_MINUTES=str(cfg.tile_minutes),
+               WINDOW_MINUTES=",".join(map(str, cfg.windows_minutes)),
+               HEATMAP_DELTA_LOG=str(cfg.delta_log),
+               HEATMAP_PYRAMID_LEVELS=str(cfg.pyramid_levels))
+    procs = []
+    follower = probe = None
+    try:
+        fleet, fport = start_fleet(
+            ["--workers", "2", "--port", "0"],
+            dict(env, HEATMAP_SERVE_CORE="epoll"), "the replica fleet")
+        procs.append(fleet)
+        single, sport = start_fleet(
+            ["--workers", "1", "--port", "0"],
+            dict(env, HEATMAP_SERVE_CORE="thread"), "the thread replica")
+        procs.append(single)
+        wait_replicas(fport, 0, 2)
+        wait_replicas(sport, 0, 1)
+        follower = DeltaFollower(fport)
+        follower.start()
+        probe = LagProbe(fport)
+        t_start = time.monotonic()
+        rt.run()
+        wall = time.monotonic() - t_start
+        follower.stop()
+        lag = probe.stop()
+        probe = None
+        launches = snap_kernel.latlng_to_cell_kernel.launches
+        m = rt.metrics
+        want = m["batches"] if dev.type == "cuda" else 0
+        if launches != want or m["events_valid"] != MAIN_EVENTS:
+            raise AssertionError(f"repl run: {launches} snap launches in "
+                                 f"{m['batches']} batches, "
+                                 f"{m['events_valid']} events")
+        seq = rt.matview.seq
+        t_catch = time.monotonic()
+        pids = wait_replicas(fport, seq, 2)
+        wait_replicas(sport, seq, 1)
+        catch_up_s = time.monotonic() - t_catch
+        out = {"events": m["events_valid"], "batches": m["batches"],
+               "wall_s": wall, "events_per_s": m["events_valid"] / wall,
+               "p50_batch_ms": m["p50_batch_ms"], "snap_launches": launches,
+               "view_seq": seq, "fleet_pids": sorted(pids),
+               "catch_up_after_close_s": catch_up_s, "lag": lag}
+        # the fleet's /latest (JSON, binary) == the writer's, ETag nonce out
+        fleet_bodies = {}
+        for qs in ("", "?fmt=bin"):
+            ws_, wh, wb, _ = http_get(wport, f"/api/tiles/latest{qs}")
+            fs_, fh, fb, _ = http_get(fport, f"/api/tiles/latest{qs}")
+            if (ws_, wb) != (fs_, fb) or (etag_shape(wh["ETag"])
+                                          != etag_shape(fh["ETag"])):
+                raise AssertionError(f"the fleet's /api/tiles/latest{qs} "
+                                     f"differs from the writer's")
+            fleet_bodies[qs] = fb
+        feats = {f["properties"]["cellId"]: f
+                 for f in json.loads(fleet_bodies[""])["features"]}
+        if wire.decode(fleet_bodies["?fmt=bin"])["seq"] != seq:
+            raise AssertionError("the fleet's binary frame names another "
+                                 "seq")
+        # the client's replayed deltas == the fleet's /latest
+        follower.poll()
+        if follower.cells != feats or not feats:
+            raise AssertionError(f"replayed deltas ({len(follower.cells)} "
+                                 f"cells, {follower.modes}) differ from "
+                                 f"the fleet's /api/tiles/latest "
+                                 f"({len(feats)} cells)")
+        if not follower.deltas_with_cells:
+            raise AssertionError(f"no delta body from the fleet carried a "
+                                 f"cell ({follower.modes})")
+        out["followed"] = {"polls": len(follower.poll_ms),
+                           "modes": follower.modes,
+                           "deltas_with_cells": follower.deltas_with_cells,
+                           "delta_cells": follower.delta_cells,
+                           "p50_poll_ms": float(np.median(
+                               follower.poll_ms))}
+        # range over the run's span: every event, writer and replica
+        span = f"t0={t0 - 300}&t1={t0 + 600}"
+        routes = {}
+        for name, port in (("writer", wport), ("fleet", fport)):
+            routes[f"range_{name}"], r = timed_get(
+                port, f"/api/tiles/range?{span}")
+            agg = json.loads(r[2])["aggregate"]["features"]
+            total = sum(f["properties"]["count"] for f in agg)
+            if total != MAIN_EVENTS:
+                raise AssertionError(f"the {name}'s range holds {total} "
+                                     f"of {MAIN_EVENTS} events")
+            routes[f"range_bin_{name}"], _ = timed_get(
+                port, f"/api/tiles/range?{span}&fmt=bin")
+            routes[f"diff_{name}"], r = timed_get(
+                port, f"/api/tiles/diff?t0={t0 - 300}&t1={t0 + 1}")
+            if not json.loads(r[2])["features"]:
+                raise AssertionError(f"the {name}'s diff holds no cell")
+        # view-at-seq on the writer (the sealed log is local there)
+        routes["at_writer"], r = timed_get(wport, f"/api/tiles/at?seq={seq}")
+        at = {f["properties"]["cellId"]: f
+              for f in json.loads(r[2])["features"]}
+        if at != feats:
+            raise AssertionError(f"/api/tiles/at?seq={seq} holds "
+                                 f"{len(at)} cells, /latest {len(feats)}")
+        out["routes"] = routes
+        # the same routes on the thread-core replica: the same bodies
+        same = []
+        for path in ("/api/tiles/latest", "/api/tiles/latest?fmt=bin",
+                     "/api/tiles/latest?res=7", "/api/tiles/topk?k=10",
+                     f"/api/tiles/delta?since={seq}",
+                     f"/api/tiles/range?{span}",
+                     f"/api/tiles/range?{span}&fmt=bin&res=8",
+                     f"/api/tiles/diff?t0={t0 - 300}&t1={t0 + 1}"):
+            es, eh, eb, _ = http_get(fport, path)
+            ts_, th, tb, _ = http_get(sport, path)
+            if (es, eb) != (ts_, tb) or (
+                    "ETag" in eh and etag_shape(eh["ETag"])
+                    != etag_shape(th["ETag"])):
+                raise AssertionError(f"{path}: the thread-core replica's "
+                                     f"body differs from the epoll one's")
+            same.append(path)
+        out["thread_equals_epoll"] = same
+        # both workers answered: the pids that reached the final seq
+        if len(pids) != 2:
+            raise AssertionError(f"fleet workers seen: {pids}")
+        # the feed and the history tier
+        st = thist.compaction_status(hist)
+        n_seg, seg_bytes = dir_bytes(f"{hist}/log/seg-*.jsonl")
+        n_live, live_bytes = dir_bytes(f"{feed}/seg-*.jsonl")
+        n_snap, snap_bytes = dir_bytes(f"{hist}/log/snap-*.json")
+        out["feed"] = {"records": seq, "segments": n_seg + n_live,
+                       "rotations": n_seg + n_live - 1,
+                       "bytes": seg_bytes + live_bytes,
+                       "snapshots": n_snap, "snapshot_bytes": snap_bytes,
+                       "seg_bytes_knob": cfg.repl_seg_bytes}
+        # the chunks decode to the view's window: every cell, every event
+        import glob
+
+        docs = {}
+        for path in glob.glob(f"{hist}/chunks/*.hst"):
+            with open(path, "rb") as fh:
+                _, windows = thist.decode_chunk(fh.read())
+            for part in windows.values():
+                for d in part["docs"]:
+                    docs[d["cellId"]] = d["count"]
+        counts = {c: f["properties"]["count"] for c, f in feats.items()}
+        if docs != counts:
+            raise AssertionError(f"the chunks hold {len(docs)} cells, "
+                                 f"the view {len(counts)}")
+        blk = comp.member_block()
+        busy = [(t, n) for t, n in steps if n]
+        out["compactor"] = {
+            "chunks": st["chunks"], "chunk_bytes": st["chunk_bytes"],
+            "chunk_writes": blk["chunk_writes"],
+            "records": blk["records"], "steps": len(steps),
+            "busy_steps": len(busy),
+            "s_per_segment": (sum(t for t, _ in busy)
+                              / max(1, n_seg + n_live)),
+            "busy_step_s_max": max((t for t, _ in busy), default=0.0),
+            "decoded_equal_view": True,
+            # the digests need an audited feed (HEATMAP_AUDIT, ROADMAP A6)
+            "digest_verified": blk["verified"],
+            "mismatches": blk["mismatches"]}
+        if not st["chunks"] or blk["mismatches"]:
+            raise AssertionError(f"compactor: {out['compactor']}")
+        out["phase_wall_s"] = time.monotonic() - t_phase
+        return out
+    finally:
+        if follower is not None:
+            follower._stop.set()
+        if probe is not None:
+            probe._stop.set()
+        for proc in procs:
+            stop_process(proc)
+        stop_background(httpd, thread)
+        del rt, store
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def phase_repl(torch, snap_kernel, ckpt_root, dev, serve):
+    """synthetic_backfill with the feed, the history tier, the replica
+    fleet and a delta client: its checks and numbers, its events/s and p50
+    batch beside the serve phase's view-on runs (the same call, the same
+    card)."""
+    out = {"phase": "repl", "source": dict(SERVE_SOURCE, t0="now-aligned"),
+           **repl_run(torch, snap_kernel, f"{ckpt_root}/repl", dev)}
+    on = [r for r, k in zip(serve["runs"], SERVE_RUNS)
+          if k == (True, False, None)]
+    out["view_on_serve_phase"] = {
+        "events_per_s": [r["events_per_s"] for r in on],
+        "p50_batch_ms": [r["p50_batch_ms"] for r in on]}
+    out["events_per_s_vs_view_on"] = [out["events_per_s"] / r["events_per_s"]
+                                      for r in on]
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2545,6 +2927,7 @@ def main() -> int:
                                 dev)
         infer = phase_infer(torch, run_pipeline, snap_kernel, ckpt_root, dev)
         serve = phase_serve(torch, snap_kernel, ckpt_root, dev)
+        repl = phase_repl(torch, snap_kernel, ckpt_root, dev, serve)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     # the rounds kernel's numbers at the main path's shape: the round set
@@ -2571,6 +2954,7 @@ def main() -> int:
             k: v["snap_launches"] for k, v in formats["runs"].items()},
         "launches_infer_phase": infer["snap_launches"],
         "launches_serve_phase": [r["snap_launches"] for r in serve["runs"]],
+        "launches_repl_phase": repl["snap_launches"],
         "max_abs_err": main_err,
         "identical_share": main_share,
         "ms": snap["ms"],

@@ -67,6 +67,11 @@ def parse_reducers(spec: str) -> tuple:
     return tuple(n for n in KNOWN_REDUCERS if n in seen)
 
 
+def _delivery_on(v: str) -> bool:
+    """HEATMAP_DELIVERY as the reference's ``delivery_enabled`` reads it."""
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
 UNPORTED_KNOBS = {
     "HEATMAP_SHARDS": (lambda v: int(v) > 1, "A7, the process fleet"),
     "HEATMAP_SHARD_INDEX": (lambda v: int(v) != 0, "A7, the process fleet"),
@@ -74,14 +79,11 @@ UNPORTED_KNOBS = {
     "HEATMAP_AUDIT": (_flag_on, "A6, observability"),
     "HEATMAP_QUALITY": (_flag_on, "A5, the inference quality "
                                   "observatory, after A4"),
-    "HEATMAP_REPL_DIR": (bool, "A4, the serve tier's second slice"),
-    "HEATMAP_HIST_DIR": (bool, "A4, the serve tier's second slice"),
-    "HEATMAP_REPL_FEED": (bool, "A4, the serve tier's second slice"),
-    "HEATMAP_SERVE_CORE": (lambda v: v == "epoll",
-                           "A4, the serve tier's second slice"),
-    "HEATMAP_SERVE_WORKERS": (lambda v: int(v) > 1,
-                              "A4, the serve tier's second slice"),
     "HEATMAP_TSDB": (_flag_on, "A6, observability"),
+    # the feed's publish stamps (obs/delivery.py: on for 1|true|yes|on)
+    "HEATMAP_DELIVERY": (_delivery_on, "A6, observability"),
+    "HEATMAP_TRACE_JSONL": (bool, "A6, observability"),
+    "HEATMAP_FLIGHTREC_DIR": (bool, "A6, observability"),
 }
 
 
@@ -182,10 +184,89 @@ class Config:
                                        # flight render/encode requests on
                                        # the data endpoints before 503 +
                                        # Retry-After; 0 disables
-    serve_workers: int = 1             # HEATMAP_SERVE_WORKERS: serve worker
-                                       # processes (> 1 not ported yet)
-    serve_core: str = "thread"         # HEATMAP_SERVE_CORE: "thread"
-                                       # (wsgiref); "epoll" not ported yet
+    serve_workers: int = 1             # HEATMAP_SERVE_WORKERS: serve
+                                       # worker processes `python -m
+                                       # heatmap_tpu_torch.serve` forks,
+                                       # each binding the same port via
+                                       # SO_REUSEPORT and running its own
+                                       # replica follower
+    serve_core: str = "thread"         # HEATMAP_SERVE_CORE: which HTTP
+                                       # core hosts the serve app —
+                                       # "thread" (wsgiref, a thread
+                                       # per request + per SSE
+                                       # subscriber) or "epoll" (the
+                                       # selectors event loop with
+                                       # zero-copy SSE fan-out,
+                                       # serve/evloop.py)
+    serve_loop_handlers: int = 8       # HEATMAP_SERVE_LOOP_HANDLERS:
+                                       # WSGI handler threads behind
+                                       # the epoll core's loop — app
+                                       # calls (store reads, history
+                                       # scans) run here so blocking
+                                       # work never stalls the loop
+    repl_dir: str = ""                 # HEATMAP_REPL_DIR: directory the
+                                       # writer process publishes the
+                                       # view-replication feed into
+                                       # (query/repl.py: segment log +
+                                       # snapshots + meta, one writer
+                                       # per dir).  The serve app also
+                                       # re-exposes the feed at
+                                       # /api/repl/* for remote
+                                       # replicas.  Empty disables
+                                       # publishing.
+    repl_feed: str = ""                # HEATMAP_REPL_FEED: what a
+                                       # serve-only worker FOLLOWS to
+                                       # hold a hot seq-consistent
+                                       # replica view with zero
+                                       # steady-state store reads: a
+                                       # feed directory (same host) or
+                                       # an http(s):// base URL of a
+                                       # process serving /api/repl/*.
+                                       # Empty keeps store-scan polling.
+    repl_seg_bytes: int = 1 << 22      # HEATMAP_REPL_SEG_BYTES: feed
+                                       # segment rotation bound; each
+                                       # rotation also refreshes the
+                                       # catch-up snapshot
+    repl_segments: int = 4             # HEATMAP_REPL_SEGMENTS: feed
+                                       # segments retained on disk
+                                       # (including the live one); a
+                                       # follower that falls behind the
+                                       # oldest re-bootstraps from the
+                                       # snapshot
+    repl_poll_ms: int = 200            # HEATMAP_REPL_POLL_MS: replica
+                                       # follower tail-poll cadence
+    hist_dir: str = ""                 # HEATMAP_HIST_DIR: space-time
+                                       # history store (query/
+                                       # history.py).  On the writer:
+                                       # rotated repl segments retire
+                                       # here instead of being deleted
+                                       # and a compactor folds them
+                                       # into immutable (grid, parent
+                                       # cell, time bucket) chunks.
+                                       # On any serve worker: enables
+                                       # /api/tiles/range|at|diff and
+                                       # the /api/hist/* re-export.
+                                       # Empty disables the tier.
+    hist_retention_s: float = 604800.0  # HEATMAP_HIST_RETENTION_S:
+                                       # history retention (7 days).
+                                       # Chunks age out past it; raw
+                                       # segments prune only once
+                                       # chunks cover them AND they
+                                       # age past it.
+    hist_bucket_s: int = 3600          # HEATMAP_HIST_BUCKET_S: time-
+                                       # bucket width of one chunk key
+    hist_parent_res: int = 3           # HEATMAP_HIST_PARENT_RES: H3
+                                       # parent resolution of the
+                                       # chunk partition key (clamped
+                                       # per cell to its own res)
+    hist_compact_s: float = 2.0        # HEATMAP_HIST_COMPACT_S:
+                                       # compaction cadence of the
+                                       # writer-side compactor thread
+    hist_backfill: bool = True         # HEATMAP_HIST_BACKFILL: replica
+                                       # cold-start backfill of pre-
+                                       # snapshot windows from history
+                                       # chunks (query/repl.py); 0
+                                       # disables
     cq: bool = True                    # HEATMAP_CQ: the continuous spatial
                                        # query engine (query/continuous)
                                        # on view-backed serve surfaces;
@@ -197,27 +278,6 @@ class Config:
                                        # buffered per query for resume
     cq_max_cells: int = 4096           # HEATMAP_CQ_MAX_CELLS: compiled
                                        # cell-set budget per query
-
-    def __post_init__(self):
-        # each serve knob has one ported value: a Config that asks for
-        # another (through the env, load_config's overrides or
-        # dataclasses.replace) raises here instead of being served by
-        # one thread-core process
-        if self.serve_workers < 1:
-            raise ValueError(
-                f"HEATMAP_SERVE_WORKERS must be >= 1, "
-                f"got {self.serve_workers}")
-        if self.serve_core not in ("thread", "epoll"):
-            raise ValueError(
-                f"HEATMAP_SERVE_CORE must be 'thread' or 'epoll', "
-                f"got {self.serve_core!r}")
-        for knob, value, ported in (
-                ("HEATMAP_SERVE_WORKERS", self.serve_workers, 1),
-                ("HEATMAP_SERVE_CORE", self.serve_core, "thread")):
-            if value != ported:
-                raise NotImplementedError(
-                    f"{knob}={value!r}: not ported to heatmap_tpu_torch "
-                    f"yet (ROADMAP A4, the serve tier's second slice)")
 
     def pair_grid(self, res: int, wmin: int) -> str:
         """Sink grid label for a (res, window) pair: "h3r{res}" for the
@@ -301,6 +361,27 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         serve_workers=_int(e, "HEATMAP_SERVE_WORKERS",
                            Config.serve_workers),
         serve_core=e.get("HEATMAP_SERVE_CORE", Config.serve_core),
+        serve_loop_handlers=_int(e, "HEATMAP_SERVE_LOOP_HANDLERS",
+                                 Config.serve_loop_handlers),
+        repl_dir=e.get("HEATMAP_REPL_DIR", Config.repl_dir),
+        repl_feed=e.get("HEATMAP_REPL_FEED", Config.repl_feed),
+        repl_seg_bytes=_int(e, "HEATMAP_REPL_SEG_BYTES",
+                            Config.repl_seg_bytes),
+        repl_segments=_int(e, "HEATMAP_REPL_SEGMENTS",
+                           Config.repl_segments),
+        repl_poll_ms=_int(e, "HEATMAP_REPL_POLL_MS",
+                          Config.repl_poll_ms),
+        hist_dir=e.get("HEATMAP_HIST_DIR", Config.hist_dir),
+        hist_retention_s=_float(e, "HEATMAP_HIST_RETENTION_S",
+                                Config.hist_retention_s),
+        hist_bucket_s=_int(e, "HEATMAP_HIST_BUCKET_S",
+                           Config.hist_bucket_s),
+        hist_parent_res=_int(e, "HEATMAP_HIST_PARENT_RES",
+                             Config.hist_parent_res),
+        hist_compact_s=_float(e, "HEATMAP_HIST_COMPACT_S",
+                              Config.hist_compact_s),
+        hist_backfill=e.get("HEATMAP_HIST_BACKFILL", "1")
+        not in ("0", "false", ""),
         cq=e.get("HEATMAP_CQ", "1") not in ("0", "false", ""),
         cq_max_queries=_int(e, "HEATMAP_CQ_MAX_QUERIES",
                             Config.cq_max_queries),
@@ -384,6 +465,44 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         raise ValueError(
             f"HEATMAP_SERVE_MAX_INFLIGHT must be >= 0 (0 = "
             f"unbounded), got {cfg.serve_max_inflight}")
+    if cfg.serve_workers < 1:
+        raise ValueError(
+            f"HEATMAP_SERVE_WORKERS must be >= 1, "
+            f"got {cfg.serve_workers}")
+    if cfg.serve_core not in ("thread", "epoll"):
+        raise ValueError(
+            f"HEATMAP_SERVE_CORE must be 'thread' or 'epoll', "
+            f"got {cfg.serve_core!r}")
+    if cfg.serve_loop_handlers < 1:
+        raise ValueError(
+            f"HEATMAP_SERVE_LOOP_HANDLERS must be >= 1, "
+            f"got {cfg.serve_loop_handlers}")
+    if cfg.repl_seg_bytes < 4096:
+        raise ValueError(
+            f"HEATMAP_REPL_SEG_BYTES must be >= 4096, "
+            f"got {cfg.repl_seg_bytes}")
+    if cfg.repl_segments < 1:
+        raise ValueError(
+            f"HEATMAP_REPL_SEGMENTS must be >= 1, got {cfg.repl_segments}")
+    if cfg.repl_poll_ms < 10:
+        raise ValueError(
+            f"HEATMAP_REPL_POLL_MS must be >= 10, got {cfg.repl_poll_ms}")
+    if cfg.hist_retention_s <= 0:
+        raise ValueError(
+            f"HEATMAP_HIST_RETENTION_S must be > 0, "
+            f"got {cfg.hist_retention_s}")
+    if cfg.hist_bucket_s < 60:
+        raise ValueError(
+            f"HEATMAP_HIST_BUCKET_S must be >= 60, "
+            f"got {cfg.hist_bucket_s}")
+    if not 0 <= cfg.hist_parent_res <= 15:
+        raise ValueError(
+            f"HEATMAP_HIST_PARENT_RES must be in 0..15, "
+            f"got {cfg.hist_parent_res}")
+    if cfg.hist_compact_s <= 0:
+        raise ValueError(
+            f"HEATMAP_HIST_COMPACT_S must be > 0, "
+            f"got {cfg.hist_compact_s}")
     if cfg.cq_max_queries < 1:
         raise ValueError(
             f"HEATMAP_CQ_MAX_QUERIES must be >= 1, "

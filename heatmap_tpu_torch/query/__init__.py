@@ -17,8 +17,13 @@ The counterpart of ``heatmap_tpu/query``:
   subscriptions, geofence enter/exit, threshold and anomaly alerts,
   evaluated O(changed) off the view's mutation stream.
 
-The reference's replication (``repl``) and history (``history``) tiers
-are not ported yet.
+- ``repl``     — delta-log view replication: ``DeltaLogPublisher`` (the
+  writer's feed), ``ReplicaViewFollower`` (a replica view with zero
+  steady-state store reads), file and HTTP transports.
+- ``history``  — the space-time history tier: the retired feed as a
+  durable log, compacted (grid, parent cell, time bucket) chunks,
+  range / at-seq / diff queries, ``python -m
+  heatmap_tpu_torch.query.history``.
 """
 
 from heatmap_tpu_torch.query.matview import (  # noqa: F401

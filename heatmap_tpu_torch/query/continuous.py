@@ -1,11 +1,12 @@
 """Continuous spatial query engine over the materialized-view stream.
 
-A copy of ``heatmap_tpu/query/continuous.py`` without the replica-reset
-path and the fleet member block (the replication tier and the process
-fleet are not ported).  *Standing* queries — register once, get pushed
-matches forever — evaluated off the view's mutation stream, in dense seq
-order: the writer carries no watcher, no index, no per-mutation work
-until a query is registered on it.
+A copy of ``heatmap_tpu/query/continuous.py`` without the fleet member
+block (the supervisor channel it is published on is ROADMAP A6/A7).
+*Standing* queries — register once, get pushed matches forever —
+evaluated off the view's mutation stream, in dense seq order, on the
+writer or on a replica following its feed (query.repl), so query load
+scales with serve workers: the writer carries no watcher, no index, no
+per-mutation work until a query is registered on it.
 
 Query menu (one registered spec each, compiled once by query.geom):
 
@@ -40,7 +41,10 @@ for cell ``c`` touches only queries whose region actually contains
 maintained purely from the mutation records — which is what makes the
 load-bearing invariant provable: **a query registered then replayed from
 seq 0 yields, at every seq, exactly the one-shot evaluation of the same
-query against the view at that seq**.
+query against the view at that seq**.  A replica snapshot resync
+arrives as the view's synthetic ``reset`` record: derived state rebuilds
+from the replaced view silently — an epoch restart or catch-up never
+mints phantom enter/exit transitions.
 
 Hook discipline: the engine attaches a view WATCHER (called under the
 view lock, enqueue-only) and drains on its own thread.  Attachment is
@@ -540,8 +544,30 @@ class ContinuousQueryEngine:
     def _process(self, rec: dict) -> None:
         kind = rec.get("kind")
         seq = int(rec.get("seq", 0))
+        if kind == "reset":
+            # replica snapshot resync / epoch switch: rebuild the
+            # shadow AND every query's edge state from the replaced
+            # view, emitting nothing — the records between the old and
+            # new state were never observed, so diffing across the gap
+            # would mint phantom transitions.  One bulk pass per grid
+            # through the index (never O(registered x window)).
+            self._seed_from_view()
+            for q in self._queries.values():
+                q.state = set()
+                q.counts = {}
+            for grid, g in self._grids.items():
+                g.active.clear()
+                latest = g.latest()
+                if latest is None:
+                    continue
+                by_q = self._bulk_members(g, g.wins[latest])
+                for qid, members in by_q.items():
+                    q = self._queries.get(qid)
+                    if q is not None and q.grid == grid:
+                        self._seed_from_members(q, g, members)
+            return
         if seq <= self._seq:
-            return  # snapshot/queue overlap replay — idempotent skip
+            return  # snapshot/tail overlap replay — idempotent skip
         self._seq = seq
         if kind == "apply":
             self._apply_record(rec.get("docs") or [], seq)

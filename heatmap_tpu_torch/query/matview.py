@@ -1,10 +1,9 @@
 """TileMatView — the materialized tile view the API reads instead of the Store.
 
-A copy of ``heatmap_tpu/query/matview.py`` without its replication
-(``query.repl``: the mutation hook, replica mode, ``replica_apply`` /
-``replica_reset``), history (``backfill_window``, ``window_docs``) and
-audit (the digest table) branches, whose subsystems are not ported; the
-continuous-query watchers and ``export_state`` stay.
+A copy of ``heatmap_tpu/query/matview.py`` without its audit branches
+(the per-window ``DigestTable`` of ``HEATMAP_AUDIT=1``, ROADMAP A6): the
+view keeps no digest table and its feed records carry no ``"dg"``, as an
+unaudited reference writer's do.
 
 One in-memory view of (grid, windowStart, cell) → tile doc, maintained
 two ways:
@@ -94,14 +93,32 @@ class _Grid:
 
 class TileMatView:
     def __init__(self, delta_log: int = 4096, pyramid_levels: int = 2,
-                 registry=None, now_fn=None):
+                 registry=None, now_fn=None, replica: bool = False):
         self._delta_log = max(1, int(delta_log))
         self._pyramid_levels = max(0, int(pyramid_levels))
         self._now = now_fn or time.time
         self._grids: dict[str, _Grid] = {}
         self._seq = 0
-        # mutation WATCHERS (query.continuous): observers of the view's
-        # mutation stream, called under the view lock, enqueue-only
+        # Replica mode (query.repl): the view is a seq-exact FOLLOWER of
+        # a writer's replication feed.  Local clock-driven eviction of
+        # the LATEST window is disabled — the seq advance it implies
+        # must come from the writer's feed marker, or the replica's seq
+        # stream would diverge from the writer's and /api/tiles/delta
+        # responses would stop being byte-interchangeable across the
+        # fleet.  Non-latest stale windows still evict locally (they
+        # never advance seq on the writer either).
+        self._replica = bool(replica)
+        # mutation hook (query.repl.DeltaLogPublisher): called under
+        # the view lock with one record per seq-advancing mutation, in
+        # seq order — the replication feed is exactly this stream
+        self._hook = None
+        # mutation WATCHERS (query.continuous): secondary observers of
+        # the same stream, enqueue-only like the hook, but (1) there can
+        # be several, (2) they additionally see a synthetic
+        # {"kind": "reset"} record when replica_reset replaces the whole
+        # view (the publisher hook must NOT see one — a reset is not a
+        # feed record), so an observer can rebuild derived state without
+        # minting phantom transitions for the bootstrap diff
         self._watchers: list = []
         # per-boot nonce folded into every ETag: seq counters restart at
         # 0 each process, so without it a post-restart ETag string could
@@ -128,10 +145,18 @@ class TileMatView:
                 "tile view across all grids",
                 fn=self.cells_live)
 
+    def set_hook(self, fn) -> None:
+        """Attach the replication mutation hook (one per view).  ``fn``
+        receives {"kind": "apply"|"evict"|"resync", "seq": int, ...}
+        under the view lock — it must only enqueue (the publisher
+        drains on its own thread)."""
+        with self._lock:
+            self._hook = fn
+
     def add_watcher(self, fn) -> None:
-        """Attach a mutation observer (continuous-query engine): it
-        receives {"kind": "apply"|"evict"|"resync"|"anomaly", "seq": int,
-        ...} under the view lock and must only enqueue."""
+        """Attach a secondary mutation observer (continuous-query
+        engine).  Same discipline as the hook — called under the view
+        lock, must only enqueue — plus the synthetic reset record."""
         with self._lock:
             if fn not in self._watchers:
                 self._watchers.append(fn)
@@ -142,9 +167,21 @@ class TileMatView:
                 self._watchers.remove(fn)
 
     def _emit(self, rec: dict) -> None:
-        """Fire the watchers (callers hold the lock).  A watcher failure
-        detaches it and is logged — a query-tier fault must never poison
-        the apply path the sink depends on."""
+        """Fire the mutation hook + watchers (callers hold the lock).
+        A hook failure detaches it and is logged — replication trouble
+        must never poison the apply path the sink depends on; the
+        detached publisher's feed goes stale, which is exactly what the
+        replicas' staleness handling exists to absorb."""
+        if self._hook is not None:
+            try:
+                self._hook(rec)
+            except Exception:
+                log.exception("view mutation hook failed; detaching "
+                              "replication publisher")
+                self._hook = None
+        self._notify_watchers(rec)
+
+    def _notify_watchers(self, rec: dict) -> None:
         for fn in list(self._watchers):
             try:
                 fn(rec)
@@ -155,7 +192,6 @@ class TileMatView:
                 except ValueError:
                     pass
 
-    # ---- write side ----------------------------------------------------
     def apply_packed(self, body, meta) -> int:
         """Apply packed emit BODY rows (engine layout) — the writer-thread
         hook for the packed sink path.  Decodes with the same oracle the
@@ -187,7 +223,7 @@ class TileMatView:
                 self._emit({"kind": "apply", "seq": seq,
                             "docs": changed_docs})
             # evict on the WRITE path too: a grid nobody polls over
-            # HTTP (a secondary grid of a pyramid)
+            # HTTP (replica behind an LB, secondary grid of a pyramid)
             # would otherwise retain every expired window's cell docs
             # and rollups forever — read-side lazy eviction alone is an
             # unbounded leak for unread grids
@@ -361,12 +397,15 @@ class TileMatView:
     def publish_anomalies(self, grid: str, events: list) -> None:
         """Fan an inference anomaly batch (infer.engine event dicts)
         into the mutation feed: one seq bump, one ``kind="anomaly"``
-        record through the watchers.  Runs on the writer thread via
-        submit_mark, AFTER the batch's tile writes — an anomaly is never
-        announced before the window state that produced it is durable.
-        Deliberately does NOT touch mod_seq / window_seq: events are not
-        tile content, so tile ETags and delta logs stay byte-identical
-        to a run with the reducer off."""
+        record through the hook + watchers.  Runs on the writer thread
+        via submit_mark, AFTER the batch's tile writes — an anomaly is
+        never announced before the window state that produced it is
+        durable.  Deliberately does NOT touch mod_seq / window_seq or
+        the digest table: events are not tile content, so tile ETags,
+        delta logs, and window digests stay byte-identical to a run
+        with the reducer off.  Replicas relay the record verbatim
+        (replica_apply advances seq on unknown kinds), so a replica's
+        continuous-query engine sees the same stream as the writer's."""
         if not events:
             return
         with self._cond:
@@ -383,9 +422,160 @@ class TileMatView:
             self.poisoned = True
             self._cond.notify_all()
 
+    # ---- replication (query.repl) --------------------------------------
+    # The follower half of the mutation-hook contract: apply records at
+    # the WRITER'S seq values, so a replica's delta/ETag seq stream is
+    # interchangeable with the writer's.  Records at or below the
+    # replica's seq are skipped (idempotent replay: snapshot + tail may
+    # overlap).
+
+    def replica_apply(self, rec: dict) -> int:
+        """Apply one replication feed record; returns changed cells."""
+        kind = rec.get("kind")
+        seq = int(rec.get("seq", 0))
+        with self._cond:
+            if seq <= self._seq:
+                return 0
+            changed = 0
+            if kind == "apply":
+                for doc in rec.get("docs") or []:
+                    changed += self._apply_one(doc, seq)
+            elif kind == "evict":
+                grid = rec.get("grid") or ""
+                g = self._grids.get(grid)
+                if g is not None:
+                    for ws in rec.get("ws") or []:
+                        if ws in g.windows:
+                            del g.windows[ws]
+                            del g.meta[ws]
+                            if g.pyramid is not None:
+                                g.pyramid.drop_window(ws)
+                    g.window_seq = g.mod_seq = seq
+                    changed = 1
+            elif kind == "resync":
+                grid = rec.get("grid") or ""
+                g = self._grid(grid)
+                self._drop_all_windows(grid, g)
+                ws = rec.get("ws")
+                docs = rec.get("docs") or []
+                if ws is not None and docs:
+                    self._install_window(grid, g, int(ws), docs)
+                g.window_seq = g.mod_seq = seq
+                g.log.clear()
+                g.dropped_seq = seq
+                changed = max(1, len(docs))
+            # the seq tracks the writer even when nothing changed
+            # locally (replayed no-ops): lag accounting and delta
+            # "since > seq -> full" behavior depend on it
+            self._seq = seq
+            if changed:
+                self._cond.notify_all()
+            self._emit(rec)  # relay topologies republish verbatim
+        return changed
+
+    def replica_reset(self, state: dict) -> None:
+        """Replace the whole view with a publisher snapshot
+        (``export_state`` shape): the follower's bootstrap, epoch
+        switch, and post-fallback resync path.  Mints a fresh ETag
+        nonce — after a reset the seq counter may move BACKWARD (a
+        restarted writer), and a strong ETag must never name two
+        representations."""
+        with self._cond:
+            self._grids.clear()
+            seq = int(state.get("seq", 0))
+            for grid, gs in (state.get("grids") or {}).items():
+                g = self._grid(grid)
+                for ws_key, cells in (gs.get("windows") or {}).items():
+                    ws = int(ws_key)
+                    w = g.windows[ws] = {}
+                    meta = (gs.get("meta") or {}).get(ws_key)
+                    if meta:
+                        g.meta[ws] = (meta[0], meta[1], meta[2])
+                    else:
+                        any_doc = next(iter(cells.values()), None)
+                        stale = (any_doc or {}).get("staleAt")
+                        g.meta[ws] = (
+                            (any_doc or {}).get("windowStart"),
+                            (any_doc or {}).get("windowEnd"),
+                            stale.timestamp() if stale is not None
+                            else None)
+                    for cid, doc in cells.items():
+                        w[cid] = doc
+                        if g.pyramid is not None:
+                            try:
+                                g.pyramid.apply(ws, int(cid, 16),
+                                                None, doc)
+                            except ValueError:
+                                g.pyramid = None
+                g.window_seq = int(gs.get("window_seq", seq))
+                g.mod_seq = int(gs.get("mod_seq", seq))
+                # the snapshot carries no changelog: anything before
+                # its seq is beyond this replica's delta horizon
+                g.dropped_seq = seq
+            self._seq = seq
+            self._nonce = os.urandom(4).hex()
+            self._cond.notify_all()
+            # watchers (not the feed hook): derived state must rebuild
+            # from the replaced view instead of diffing across the
+            # bootstrap — a resync never mints phantom transitions
+            self._notify_watchers({"kind": "reset", "seq": seq})
+
+    def backfill_window(self, grid: str, ws: int, docs,
+                        stale_ts: float | None = None) -> bool:
+        """History cold-start backfill (query/history.py): install one
+        PRE-LATEST window's docs without advancing seq, firing the
+        replication hook/watchers — the window is historical context, not a new mutation, so the
+        replica's seq/ETag/delta stream stays byte-interchangeable
+        with the writer's.  Refused (False) when the grid is unknown
+        or empty, the window already exists, or ``ws`` would become
+        the latest window (backfill must never change what /latest
+        serves)."""
+        docs = list(docs)
+        if not docs:
+            return False
+        ws = int(ws)
+        with self._cond:
+            g = self._grids.get(grid)
+            if g is None:
+                return False
+            latest = g.latest_ws()
+            if latest is None or ws >= latest or ws in g.windows:
+                return False
+            d0 = docs[0]
+            w = g.windows[ws] = {}
+            g.meta[ws] = (d0.get("windowStart"), d0.get("windowEnd"),
+                          stale_ts)
+            for d in docs:
+                w[d["cellId"]] = d
+                if g.pyramid is not None:
+                    try:
+                        g.pyramid.apply(ws, int(d["cellId"], 16),
+                                        None, d)
+                    except ValueError:
+                        g.pyramid = None
+            return True
+
+    def has_window(self, grid: str, ws: int) -> bool:
+        with self._lock:
+            g = self._grids.get(grid)
+            return g is not None and int(ws) in g.windows
+
+    def window_docs(self, grid: str) -> dict:
+        """{ws: (ws_dt, we_dt, docs)} of the grid's live windows under
+        ONE lock acquisition — the live overlay /api/tiles/range
+        merges over the compacted chunk store (the view is always
+        fresher than any chunk covering the same window)."""
+        with self._lock:
+            g = self._grids.get(grid)
+            if g is None:
+                return {}
+            self._evict(grid, g)
+            return {ws: (g.meta[ws][0], g.meta[ws][1], list(w.values()))
+                    for ws, w in g.windows.items()}
+
     def export_state(self) -> dict:
-        """A snapshot of the whole view under ONE lock acquisition (the
-        continuous-query engine seeds its shadow from it).  Window dicts are
+        """The publisher's snapshot of the whole view under ONE lock
+        acquisition (``replica_reset``'s input).  Window dicts are
         shallow-copied — docs are replaced, never mutated in place, so
         sharing the doc dicts with concurrent appliers is safe."""
         with self._lock:
@@ -405,11 +595,16 @@ class TileMatView:
     def _evict(self, grid: str, g: _Grid) -> None:
         """Drop windows past their staleAt, mirroring the store's TTL
         index.  Evicting the LATEST window is a visible change: the seq
-        advances and delta clients resync (their baseline is gone)."""
+        advances and delta clients resync (their baseline is gone).  A
+        replica never evicts its latest window locally — that seq
+        advance arrives as the writer's feed marker (or not at all,
+        which is what its staleness SLO is for)."""
         now = self._now()
         latest_before = g.latest_ws()
         dead = [ws for ws, (_, _, stale) in g.meta.items()
                 if stale is not None and stale <= now]
+        if self._replica:
+            dead = [ws for ws in dead if ws != latest_before]
         for ws in dead:
             del g.windows[ws]
             del g.meta[ws]
@@ -426,6 +621,14 @@ class TileMatView:
     def known_grid(self, grid: str) -> bool:
         with self._lock:
             return grid in self._grids
+
+    def latest_ws_of(self, grid: str) -> int | None:
+        """Epoch-seconds windowStart of the grid's latest window (the
+        serving-visible one digest verification covers); None when the
+        grid is unknown or empty."""
+        with self._lock:
+            g = self._grids.get(grid)
+            return g.latest_ws() if g is not None else None
 
     def etag(self, grid: str, res: int | None = None) -> str:
         """Strong ETag for the grid's current latest-window view (and
@@ -602,8 +805,8 @@ class StoreViewRefresher:
         self._lock = threading.Lock()
         self._st: dict[str, tuple] = {}  # grid -> (ver, next_eligible_t)
         self._fails: dict[str, int] = {}  # grid -> consecutive failures
-        # catch-up health for /healthz: a serve-only worker whose FIRST
-        # scan failed must report degraded, not ok-but-empty — ever_ok flips
+        # catch-up health for /healthz: a replica whose FIRST scan
+        # failed must report degraded, not ok-but-empty — ever_ok flips
         # on the first successful rebuild (even of an empty store, which
         # is a legitimate fresh deployment, not a failure)
         self.ever_ok = False
@@ -639,7 +842,7 @@ class StoreViewRefresher:
             # one guard covers both regimes: st[1] is the next-eligible
             # deadline — poll TTL after a success, the exponential
             # backoff deadline after a failure (retry SOONER than the
-            # TTL at first, 0.2 s doubling toward a 30 s cap: a worker
+            # TTL at first, 0.2 s doubling toward a 30 s cap: a replica
             # must not serve empty for a full TTL because one boot-time
             # scan flaked, nor hammer a down store at request rate).  A
             # MOVED version bypasses either wait: the store is

@@ -1,8 +1,10 @@
 """WSGI application: tiles/positions GeoJSON + query tier + metrics + UI.
 
-A copy of ``heatmap_tpu/serve/api.py`` for the thread core (wsgiref, a
-thread per request and per SSE subscriber) and the routes the reference
-serves at its defaults, over the materialized tile view:
+A copy of ``heatmap_tpu/serve/api.py`` for both serve cores (the thread
+core, wsgiref with a thread per request and per SSE subscriber, and the
+``HEATMAP_SERVE_CORE=epoll`` event loop, serve/evloop.py) over the
+materialized tile view, a writer-fed one or a replica following a
+replication feed (``HEATMAP_REPL_FEED``):
 
 - GET /api/tiles/latest  → FeatureCollection of Polygon features for the
   newest windowStart, properties {cellId, count, avgSpeedKmh, windowStart,
@@ -25,13 +27,25 @@ serves at its defaults, over the materialized tile view:
   the engine in this process.
 - POST/GET/DELETE /api/queries, GET /api/queries/stream → continuous
   spatial queries (query.continuous).
+- GET /api/tiles/range?grid&t0&t1[&res][&fmt=bin], /api/tiles/at?seq=,
+  /api/tiles/diff?t0&t1 → the space-time history tier
+  (query/history.py, ``HEATMAP_HIST_DIR``; a replica following an http
+  feed reads the writer's /api/hist/* re-export); /api/hist/index |
+  /api/hist/chunk?name= → the chunk store re-exported for remote
+  replicas.
+- GET /api/repl/meta | /snapshot?epoch= | /feed?epoch=&since=&max= →
+  the view-replication feed (query/repl.py, ``HEATMAP_REPL_DIR``) over
+  HTTP, what a replica's ``HEATMAP_REPL_FEED=http://writer:port``
+  follower polls.
 - GET / → the embedded Leaflet UI; /metrics.json, /metrics, /healthz,
   /debug/view, /debug/requests.
 
-The routes of subsystems the port does not have yet answer as the
-reference does when that subsystem is absent (503 with its message:
-replication, history, the audit/quality/timeline surfaces, the fleet)
-or, where the reference has no such answer, 501 naming the ROADMAP item
+Still cut: the delivery lineage, audit, quality, telemetry-history and
+trace surfaces, and the fleet member snapshot a serve worker publishes
+(they need observability and a supervisor channel, ROADMAP A6/A7).  Their
+routes answer as the reference does when that subsystem is absent (503
+with its message: the audit/quality/timeline surfaces, the fleet) or,
+where the reference has no such answer, 501 naming the ROADMAP item
 (``UNPORTED_ROUTES``).  No request path touches the device: the view
 holds host dicts only, and the runtime's metrics come from the snapshot
 its step thread publishes at each batch end (``metrics_snapshot``).
@@ -65,16 +79,7 @@ log = logging.getLogger(__name__)
 # reference answers a route with 503 when its subsystem is absent, the
 # port gives that answer; the rest answer 501 naming the ROADMAP item.
 _NOT_PORTED = "not ported to heatmap_tpu_torch yet (ROADMAP {})"
-_UNPORTED_EXACT = {
-    "/api/tiles/range": (503, "the space-time history tier needs "
-                              "HEATMAP_HIST_DIR (or an http replication "
-                              "feed whose writer exposes /api/hist/*)"),
-    "/api/tiles/diff": (503, "the space-time history tier needs "
-                             "HEATMAP_HIST_DIR (or an http replication "
-                             "feed whose writer exposes /api/hist/*)"),
-    "/api/tiles/at": (503, "view-at-seq replay needs a local "
-                           "HEATMAP_HIST_DIR (the sealed log lives "
-                           "there)"),
+_UNPORTED = {
     "/debug/audit": (503, "the integrity observatory needs "
                           "HEATMAP_AUDIT=1"),
     "/debug/quality": (503, "the quality observatory needs "
@@ -94,23 +99,8 @@ _UNPORTED_EXACT = {
     "/debug/profile": (501, _NOT_PORTED.format("A6, observability")),
     "/debug/stacks": (501, _NOT_PORTED.format("A6, observability")),
 }
-_UNPORTED_PREFIX = {
-    "/api/repl/": (503, "replication feed endpoints need "
-                        "HEATMAP_REPL_DIR"),
-    "/api/hist/": (503, "the history re-export needs HEATMAP_HIST_DIR"),
-}
-# every route the two tables above answer, for the pin in the tests
-UNPORTED_ROUTES = tuple(sorted(_UNPORTED_EXACT)) + tuple(
-    p + "*" for p in sorted(_UNPORTED_PREFIX))
-
-
-def _unported(path: str):
-    """(status, error) for a route of a subsystem not ported, else None."""
-    hit = _UNPORTED_EXACT.get(path)
-    if hit is None:
-        hit = next((v for p, v in _UNPORTED_PREFIX.items()
-                    if path.startswith(p)), None)
-    return hit
+# every route the table above answers, for the pin in the tests
+UNPORTED_ROUTES = tuple(sorted(_UNPORTED))
 
 
 @functools.lru_cache(maxsize=65536)
@@ -226,6 +216,22 @@ def _qs_int(params: dict, name: str, default: int, cap: int) -> int:
         return default
 
 
+def _qs_epoch_s(params: dict, name: str) -> tuple[float | None, bool]:
+    """Epoch-seconds param: (value, ok).  Absent -> (None, True);
+    garbage -> (None, False) so the caller can answer 400 instead of
+    silently substituting a time the client did not ask for."""
+    raw = params.get(name)
+    if raw is None:
+        return None, True
+    try:
+        v = float(raw)
+    except (TypeError, ValueError):
+        return None, False
+    if not -1e12 < v < 1e12:
+        return None, False
+    return v, True
+
+
 _GRID_RE = None  # compiled lazily (re import stays off the hot path)
 
 
@@ -259,6 +265,19 @@ def _parse_res(params: dict) -> tuple[int | None, str | None]:
     if not 0 <= res <= 15:
         return None, f"res= must be in 0..15, got {res}"
     return res, None
+
+
+def _hist_res_err(grid: str | None, res: int | None) -> str | None:
+    """Validate a history rollup resolution against the grid's base:
+    history rollups compute on the fly (no pyramid-levels limit), so
+    any resolution AT or COARSER than the base is fine; finer is not."""
+    from heatmap_tpu_torch.query.matview import _grid_base_res
+
+    base = _grid_base_res(grid)
+    if res is not None and res != base and (base is None or res > base):
+        return (f"res={res} must be at or coarser than the grid's "
+                f"base resolution")
+    return None
 
 
 def _parse_bbox(params: dict) -> tuple[tuple | None, str | None]:
@@ -536,6 +555,21 @@ class _ServeStats:
             "(HEATMAP_SERVE_CORE) — 1 on the active core's label, "
             "thread = wsgiref, epoll = the selectors event loop",
             labels=("core",))
+        self.open_connections = reg.gauge(
+            "heatmap_serve_open_connections",
+            "TCP connections currently open on the epoll serve core "
+            "(parsing, handling, draining, or streaming SSE)")
+        self.write_backlog = reg.gauge(
+            "heatmap_serve_write_backlog",
+            "epoll-core connections currently holding write interest "
+            "— bytes staged but not yet accepted by the socket; the "
+            "slow-client pressure gauge")
+        self.loop_iter = reg.histogram(
+            "heatmap_serve_loop_iteration_seconds",
+            "busy time of one epoll event-loop iteration (dispatch + "
+            "writes + ticks, excluding the idle select() wait) — the "
+            "loop's own latency floor under fan-out load",
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0))
 
 
 class _SSEBody:
@@ -695,6 +729,9 @@ _ADMIT_PATHS = {
     "/api/tiles/delta": "delta",
     "/api/tiles/topk": "topk",
     "/api/positions/latest": "positions",
+    "/api/tiles/range": "range",
+    "/api/tiles/at": "at",
+    "/api/tiles/diff": "diff",
     "/api/tiles/forecast": "forecast",
 }
 
@@ -712,22 +749,60 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
     # - runtime attached: the runtime's writer-fed view (durable rows
     #   only; absent under HEATMAP_QUERY_VIEW=0).
     # - serve-only: an app-local view rebuilt from Store scans by
-    #   version polling + the HEATMAP_VIEW_POLL_MS TTL.
+    #   version polling + the HEATMAP_VIEW_POLL_MS TTL, or, with
+    #   HEATMAP_REPL_FEED, a replica view following the writer's feed.
     from heatmap_tpu_torch.obs.registry import Registry
 
     serve_reg = runtime.registry if runtime is not None else Registry()
     stats = _ServeStats(serve_reg)
     view = getattr(runtime, "matview", None) if runtime is not None else None
     refresher = None
+    follower = None
+    repl_dir = cfg.repl_dir
+    repl_feed = cfg.repl_feed
+    # ---- space-time history tier (query/history.py) -------------------
+    # A local HEATMAP_HIST_DIR serves range/at/diff straight off the
+    # chunk store (and re-exports it at /api/hist/* for remote
+    # replicas); a replica following an http feed reads the writer's
+    # re-export over the same transport.  The source also feeds the
+    # follower's cold-start backfill below.
+    hist_dir = cfg.hist_dir
+    # scan accounting: the history endpoints reset the thread-local
+    # tally before each query and attach it to the span
+    from heatmap_tpu_torch.query import history as histmod
+
+    hist_src = None
+    if hist_dir:
+        hist_src = histmod.FileHistorySource(hist_dir)
+    elif repl_feed.startswith("http://") \
+            or repl_feed.startswith("https://"):
+        hist_src = histmod.HttpHistorySource(repl_feed)
     if view is None and cfg.query_view:
         from heatmap_tpu_torch.query import StoreViewRefresher, TileMatView
 
         view = TileMatView(delta_log=cfg.delta_log,
                            pyramid_levels=cfg.pyramid_levels,
-                           registry=serve_reg)
+                           registry=serve_reg,
+                           replica=bool(repl_feed))
         refresher = StoreViewRefresher(store, view,
                                        poll_s=cfg.view_poll_ms / 1e3,
                                        registry=serve_reg)
+        if repl_feed:
+            # replicated serve fleet (query.repl): the view follows the
+            # writer's delta-log feed — zero steady-state store reads.
+            # The StoreViewRefresher above is DEMOTED to a counted,
+            # healthz-warning fallback: it runs only while the follower
+            # is unsynced, and every request that takes that path bumps
+            # heatmap_repl_fallback_total.
+            from heatmap_tpu_torch.query.repl import (ReplicaViewFollower,
+                                                      feed_source)
+
+            follower = ReplicaViewFollower(
+                view, feed_source(repl_feed),
+                poll_s=cfg.repl_poll_ms / 1e3,
+                registry=serve_reg,
+                hist_source=hist_src if cfg.hist_backfill else None)
+            follower.start()
     # Continuous spatial query engine (query.continuous): standing
     # bbox/polygon/topk/geofence/threshold/anomaly subscriptions over
     # the view's mutation stream.  Created wherever the view exists so
@@ -745,6 +820,17 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
             events_per_query=cfg.cq_events,
             max_cells=cfg.cq_max_cells,
             default_ttl_s=cfg.cq_ttl_s)
+    hist_reader = None
+    if hist_src is not None:
+        hist_reader = histmod.HistoryReader(hist_src, view=view,
+                                            registry=serve_reg)
+    # view-at-seq replays are full log reconstructions: memoize the
+    # rendered bodies of the last few (epoch-keyed — a writer restart
+    # invalidates naturally because the epoch changes).  A serve-only
+    # app never PUBLISHES to repl_dir: only the writer process's runtime
+    # creates the publisher; HEATMAP_REPL_DIR on a serve process only
+    # re-exposes the feed at /api/repl/*.
+    hist_at_cache: dict = {}
     sse_max = cfg.sse_max_clients
     sse_heartbeat = cfg.sse_heartbeat_s
     sse_admit_lock = threading.Lock()
@@ -756,6 +842,7 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
     # channel, fanned to bounded per-client queues); bounded in-flight
     # render admission.
     from heatmap_tpu_torch.native import NativeWireOps
+    from heatmap_tpu_torch.serve import evloop as evloopmod
     from heatmap_tpu_torch.serve import wire as wiremod
 
     wire_ops = NativeWireOps()
@@ -770,6 +857,17 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
         "across all subscribers — a wedged client shows here for the "
         "whole send-timeout window BEFORE it is shed as lagged",
         fn=fanout.max_write_stall_s)
+    # the O(channels) invariant, observable: total frames retained in
+    # the shared per-channel rings — flat in subscriber count, because
+    # an event-loop subscriber holds only a (cursor, offset) pair into
+    # the ring, never copies of frames
+    serve_reg.gauge(
+        "heatmap_sse_fanout_retained_frames",
+        "frames currently retained across all SSE fan-out channel "
+        "rings (the epoll core's entire fan-out buffer memory) — "
+        "bounded by channels x HEATMAP_SSE_QUEUE regardless of "
+        "subscriber count",
+        fn=fanout.retained_frames)
     # ---- serve request spans ------------------------------------------
     # Every admission-controlled request carries a _Span; completed
     # spans land in a bounded ring at /debug/requests, and spans slower
@@ -868,19 +966,55 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
     boot_nonce = uuid.uuid4().hex[:8]
     seeded: set = set()
 
+    # compaction_status is a chunk/log directory scan; /healthz probes
+    # must not each pay it — one short memo serves them
+    _hist_memo: dict = {}
+
+    def _hist_status() -> dict:
+        now = time.monotonic()
+        if not _hist_memo or now - _hist_memo.get("t", 0.0) >= 2.0:
+            _hist_memo["st"] = histmod.compaction_status(hist_dir)
+            _hist_memo["t"] = now
+        return _hist_memo["st"]
+
     def _serve_checks() -> tuple[dict, bool]:
-        """The serve tier's /healthz contribution: the view's state, the
-        store catch-up on a serve-only worker, the continuous-query
-        evaluation lag."""
+        """The serve tier's /healthz contribution: the view's state,
+        replication sync/lag/staleness on a replica, store catch-up on a
+        serve-only worker, the history tier's compaction lag, the
+        continuous-query evaluation lag."""
         checks: dict = {}
         degraded = False
         if view is not None and view.poisoned:
             checks["query_view"] = {"value": "poisoned", "ok": False}
             degraded = True
-        if refresher is not None:
+        if follower is not None:
+            fc, f_degraded = follower.healthz_checks(
+                _slo("HEATMAP_SLO_REPL_LAG_S", 10.0))
+            checks.update(fc)
+            degraded |= f_degraded
+        elif refresher is not None:
             h = refresher.health()
             checks["view_catchup"] = h
             degraded |= not h["ok"]
+        if hist_dir:
+            # compaction-lag SLO: rotated segments must keep turning
+            # into chunks; a stalled compactor silently narrows the
+            # durable history even though serving looks healthy.  Any
+            # digest mismatch degrades too (and freezes pruning).
+            st = _hist_status()
+            budget = _slo("HEATMAP_SLO_HIST_LAG_S", 120.0)
+            ok = st["lag_s"] <= budget
+            checks["hist_compaction_lag_s"] = {
+                "value": round(st["lag_s"], 3), "budget": budget,
+                "ok": ok, "chunks": st["chunks"],
+                "pending_segments": st["pending_segments"]}
+            degraded |= not ok
+            mm = st.get("mismatches", 0)
+            if mm:
+                checks["hist_digest"] = {
+                    "value": f"{mm} compaction digest mismatch(es)",
+                    "ok": False}
+                degraded = True
         if cq_engine is not None and cq_engine.registered:
             # continuous-query eval lag: standing subscribers being
             # pushed stale matches is an SLO breach; a query-less
@@ -900,9 +1034,26 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
         writer-fed view that has never seen ``grid`` (process restarted
         against a durable store) is seeded ONCE from a store scan —
         upsert-only, so racing the writer thread cannot un-expose a
-        durable row."""
+        durable row.  On a REPLICA the follower feeds the view and the
+        store-scan refresher runs only while the follower has never
+        synced — counted, so 'zero store reads in steady state' is a
+        number, not a claim."""
         if view is None or view.poisoned:
             return None
+        if follower is not None:
+            if not follower.synced:
+                # demoted fallback: store content beats serving nothing
+                # — but ONLY while the replica has never synced.  Once
+                # a snapshot applied, a stale feed keeps serving the
+                # last replicated state: a store scan here would WIPE
+                # the feed-fed view (replicas run with empty stores in
+                # the zero-store-read topology) and fork the seq
+                # stream.  Every pass through here is an incident
+                # signal (/healthz is degraded right now too).
+                if follower.c_fallback is not None:
+                    follower.c_fallback.inc()
+                refresher.refresh(grid)
+            return view
         if refresher is not None:
             refresher.refresh(grid)
         elif grid not in seeded:
@@ -929,11 +1080,16 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
     def _store_poll_tick(grid) -> bool:
         """One store-fed refresh tick shared by the fan-out pumps: True
         when this worker is store-polling (nothing else advances the
-        view)."""
-        if refresher is not None:
+        view), with the demoted-fallback accounting the replica
+        topology requires."""
+        store_polling = (refresher is not None
+                         and (follower is None or not follower.synced))
+        if store_polling:
+            if follower is not None \
+                    and follower.c_fallback is not None:
+                follower.c_fallback.inc()
             refresher.refresh(grid)
-            return True
-        return False
+        return store_polling
 
     def _sse_tiles_frame(d: dict, grid: str, fmt: str) -> bytes:
         """One encoded SSE frame for a delta payload — the shared
@@ -1084,7 +1240,16 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
         # this order can never gap
         start_seq = view.seq
         pump = _tiles_pump(grid, fmt, start_seq)
-        chan, sub = fanout.subscribe(("tiles", grid, fmt), pump)
+        key = ("tiles", grid, fmt)
+        # event-loop core: same pump, same channel key, but the
+        # subscriber is a (cursor, offset) pair into the channel's
+        # shared frame ring (no per-subscriber queue, no writer
+        # thread) and the loop drains it — wire bytes identical
+        evloop = bool(environ.get("heatmap.evloop"))
+        if evloop:
+            chan, sub = fanout.subscribe_ev(key, pump)
+        else:
+            chan, sub = fanout.subscribe(key, pump)
         d = view.delta(grid, since)
         stats.delta_cells.observe(len(d["docs"]))
         first = [_sse_tiles_frame(d, grid, fmt)]
@@ -1093,6 +1258,10 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
             fanout.unsubscribe(chan, sub)
             stats.sse_clients.inc(-1)
 
+        if evloop:
+            return evloopmod.EvloopStream(
+                chan, sub, [b"retry: 3000\n\n"] + first, on_close,
+                sse_heartbeat, sse_send_timeout)
         # the admission slot is released in _SSEBody.close(), which the
         # WSGI server guarantees to call — a bare generator's finally
         # would never run if iteration never starts
@@ -1173,7 +1342,11 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
         # subscribe first, then the per-client resume frame (same
         # no-gap ordering as the tiles stream; `id:` lines make the
         # possible overlap visible to resuming clients)
-        chan, sub = fanout.subscribe(("cq", qid), pump)
+        evloop = bool(environ.get("heatmap.evloop"))
+        if evloop:
+            chan, sub = fanout.subscribe_ev(("cq", qid), pump)
+        else:
+            chan, sub = fanout.subscribe(("cq", qid), pump)
         first = []
         evs = cq_engine.events_since(qid, since)
         if evs:
@@ -1183,6 +1356,10 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
             fanout.unsubscribe(chan, sub)
             stats.sse_clients.inc(-1)
 
+        if evloop:
+            return evloopmod.EvloopStream(
+                chan, sub, [b"retry: 3000\n\n"] + first, on_close,
+                sse_heartbeat, sse_send_timeout)
         return _SSEBody(_sse_generator(sub, first), on_close)
 
     def _handle(environ, start_response):
@@ -1436,6 +1613,243 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                                      "application/json")])
                     return [b'{"error": "GET, POST or DELETE"}']
                 ctype = "application/json"
+            elif path == "/api/tiles/range":
+                # space-time history (query/history.py): per-window
+                # series + cross-range aggregate over [t0, t1), served
+                # from the compacted chunk store with the live view's
+                # windows overlaid (latest / not-yet-compacted windows
+                # serve without waiting for the compactor)
+                endpoint = "range"
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                grid, err = _parse_grid(params, default_grid)
+                if err:
+                    return _bad_request(err)
+                res, err = _parse_res(params)
+                if err:
+                    return _bad_request(err)
+                fmt, err = _negotiate_fmt(environ, params)
+                if err:
+                    return _bad_request(err)
+                if hist_reader is None:
+                    return _unavailable(
+                        "the space-time history tier needs "
+                        "HEATMAP_HIST_DIR (or an http replication "
+                        "feed whose writer exposes /api/hist/*)")
+                t0, ok0 = _qs_epoch_s(params, "t0")
+                t1, ok1 = _qs_epoch_s(params, "t1")
+                if not ok0 or not ok1 or t0 is None:
+                    return _bad_request(
+                        "range needs t0= (epoch seconds; t1= defaults "
+                        "to now)")
+                if t1 is None:
+                    t1 = time.time()
+                if t0 >= t1:
+                    return _bad_request("t0 must be before t1")
+                from heatmap_tpu_torch.query.matview import _grid_base_res
+
+                err = _hist_res_err(grid, res)
+                if err:
+                    return _bad_request(err)
+                base = _grid_base_res(grid)
+                extra_headers.append(("Vary", "Accept"))
+                _mk("parse")
+                histmod.scan_reset()
+                per_window = hist_reader.windows_in_range(grid, t0, t1)
+                win_out = []
+                for ws in sorted(per_window):
+                    docs = per_window[ws]["docs"]
+                    if not docs:
+                        continue
+                    ws_dt = docs[0].get("windowStart")
+                    we_dt = docs[0].get("windowEnd")
+                    if res is not None and res != base:
+                        docs = sorted(
+                            histmod.rollup_window(docs, res, base, ws_dt,
+                                          we_dt),
+                            key=lambda d: d["cellId"])
+                    win_out.append((ws, ws_dt, we_dt, docs))
+                ctype = "application/json"
+                if fmt == "bin":
+                    # the window series as length-prefixed tile wire
+                    # frames (one per window, seq = windowStart epoch
+                    # seconds); the cross-range aggregate is JSON-only
+                    try:
+                        body_b = bytearray()
+                        for ws, ws_dt, _we, docs in win_out:
+                            frame = wiremod.encode("full", ws, grid,
+                                                   ws_dt, docs,
+                                                   native=wire_ops)
+                            body_b += len(frame).to_bytes(4, "little")
+                            body_b += frame
+                        data = bytes(body_b)
+                        ctype = wiremod.CONTENT_TYPE
+                    except ValueError:
+                        log.warning("binary range frame "
+                                    "unrepresentable; serving JSON",
+                                    exc_info=True)
+                        fmt = "json"
+                if fmt == "json":
+                    t0_dt = dt.datetime.fromtimestamp(t0, dt.timezone.utc)
+                    t1_dt = dt.datetime.fromtimestamp(t1, dt.timezone.utc)
+                    agg = histmod.aggregate_range(
+                        {ws: {"docs": docs}
+                         for ws, _w, _e, docs in win_out},
+                        t0_dt, t1_dt)
+                    parts = []
+                    for ws, ws_dt, we_dt, docs in win_out:
+                        head_w = json.dumps({
+                            "windowStart": _iso(ws_dt)
+                            if ws_dt is not None else None,
+                            "windowEnd": _iso(we_dt)
+                            if we_dt is not None else None})
+                        parts.append(
+                            head_w[:-1] + ', "features": ['
+                            + ", ".join(_feature_json(d) for d in docs)
+                            + ']}')
+                    head = json.dumps({"grid": grid, "t0": t0,
+                                       "t1": t1, "res": res,
+                                       "windows": len(win_out)})
+                    data = (head[:-1] + ', "series": ['
+                            + ", ".join(parts)
+                            + '], "aggregate": {"features": ['
+                            + ", ".join(_feature_json(d) for d in agg)
+                            + ']}}').encode("utf-8")
+                _account_render(endpoint, data)
+                stats.wire_format.labels(endpoint=endpoint,
+                                         fmt=fmt).inc()
+                _mk("lookup")
+                if span is not None:
+                    span.scan = histmod.last_scan()
+                import hashlib
+
+                etag = f'"hr.{hashlib.md5(data).hexdigest()[:16]}"'
+                if _inm_match(environ, etag):
+                    return _not_modified(etag, endpoint,
+                                         vary_accept=True)
+                extra_headers.append(("ETag", etag))
+            elif path == "/api/tiles/at":
+                # view-at-seq replay (query/history.py view_at_seq):
+                # the materialized view reconstructed from an adopted
+                # snapshot + the sealed log at one historical seq —
+                # incident forensics next to the flight recorder's
+                # episode dumps
+                endpoint = "at"
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                grid, err = _parse_grid(params, default_grid)
+                if err:
+                    return _bad_request(err)
+                if not hist_dir:
+                    return _unavailable(
+                        "view-at-seq replay needs a local "
+                        "HEATMAP_HIST_DIR (the sealed log lives "
+                        "there)")
+                seq = _qs_int(params, "seq", 0, 1 << 62)
+                if seq <= 0:
+                    return _bad_request("at needs seq= > 0")
+                _mk("parse")
+                from heatmap_tpu_torch.query.repl import read_meta
+
+                feed = repl_dir or (
+                    repl_feed if repl_feed
+                    and not repl_feed.startswith("http") else None)
+                epoch = params.get("epoch") or (
+                    read_meta(feed).get("epoch") if feed else None)
+                key = (epoch, seq, grid)
+                data = (hist_at_cache.get(key)
+                        if epoch is not None else None)
+                if data is None:
+                    try:
+                        v_at = histmod.view_at_seq(hist_dir, seq,
+                                           feed_dir=feed, epoch=epoch)
+                    except ValueError as e:
+                        start_response("404 Not Found",
+                                       [("Content-Type",
+                                         "application/json")])
+                        return [json.dumps({"error": str(e)}).encode()]
+                    ws_dt, docs = v_at.latest_docs(grid)
+                    head = json.dumps({
+                        "seq": seq, "grid": grid,
+                        "windowStart": _iso(ws_dt)
+                        if ws_dt is not None else None})
+                    data = (head[:-1] + ', "features": ['
+                            + ", ".join(_feature_json(d) for d in docs)
+                            + ']}').encode("utf-8")
+                    if epoch is not None:
+                        if len(hist_at_cache) >= 8:
+                            hist_at_cache.pop(
+                                next(iter(hist_at_cache)))
+                        hist_at_cache[key] = data
+                _account_render(endpoint, data)
+                _mk("lookup")
+                ctype = "application/json"
+            elif path == "/api/tiles/diff":
+                # day-over-day diff: the window states anchored at t0
+                # and t1 compared per cell (delta = count@t1 -
+                # count@t0; cells present on only one side count 0 on
+                # the other)
+                endpoint = "diff"
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                grid, err = _parse_grid(params, default_grid)
+                if err:
+                    return _bad_request(err)
+                res, err = _parse_res(params)
+                if err:
+                    return _bad_request(err)
+                if hist_reader is None:
+                    return _unavailable(
+                        "the space-time history tier needs "
+                        "HEATMAP_HIST_DIR (or an http replication "
+                        "feed whose writer exposes /api/hist/*)")
+                t0, ok0 = _qs_epoch_s(params, "t0")
+                t1, ok1 = _qs_epoch_s(params, "t1")
+                if not ok0 or not ok1 or t0 is None or t1 is None:
+                    return _bad_request(
+                        "diff needs t0= and t1= (epoch seconds)")
+                from heatmap_tpu_torch.query.matview import _grid_base_res
+
+                err = _hist_res_err(grid, res)
+                if err:
+                    return _bad_request(err)
+                base = _grid_base_res(grid)
+                _mk("parse")
+                histmod.scan_reset()
+                sides = []
+                for t in (t0, t1):
+                    got = hist_reader.window_at(grid, t)
+                    docs = got[1] if got else []
+                    if docs and res is not None and res != base:
+                        docs = histmod.rollup_window(
+                            docs, res, base,
+                            docs[0].get("windowStart"),
+                            docs[0].get("windowEnd"))
+                    sides.append((got[0] if got else None,
+                                  {d["cellId"]: d for d in docs}))
+                (ws0, m0), (ws1, m1) = sides
+                feats = []
+                for cid in sorted(set(m0) | set(m1)):
+                    c0 = int((m0.get(cid) or {}).get("count", 0))
+                    c1 = int((m1.get(cid) or {}).get("count", 0))
+                    props = {"cellId": cid, "count": c1,
+                             "prevCount": c0, "delta": c1 - c0}
+                    side = m1.get(cid) or m0.get(cid)
+                    if side is not None and "avgSpeedKmh" in side:
+                        props["avgSpeedKmh"] = float(
+                            side["avgSpeedKmh"])
+                    feats.append(
+                        '{"type": "Feature", "geometry": '
+                        + _cell_geometry_json(cid)
+                        + ', "properties": ' + json.dumps(props) + '}')
+                head = json.dumps({"grid": grid, "t0": t0, "t1": t1,
+                                   "res": res, "window0": ws0,
+                                   "window1": ws1})
+                body = (head[:-1] + ', "features": ['
+                        + ", ".join(feats) + ']}')
+                data = body.encode("utf-8")
+                _account_render(endpoint, data)
+                _mk("lookup")
+                if span is not None:
+                    span.scan = histmod.last_scan()
+                ctype = "application/json"
             elif path == "/api/tiles/forecast":
                 # short-horizon occupancy forecast (infer.engine): every
                 # tracked entity advected along its filtered velocity
@@ -1467,6 +1881,39 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                 _account_render(endpoint, data)
                 _mk("lookup")
                 ctype = "application/json"
+            elif path.startswith("/api/hist/"):
+                # the chunk store re-exported over HTTP: what a remote
+                # replica's cold-start backfill (and range reader)
+                # consumes via HttpHistorySource
+                if not hist_dir:
+                    return _unavailable(
+                        "the history re-export needs HEATMAP_HIST_DIR")
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                if path == "/api/hist/index":
+                    body = json.dumps({
+                        "chunks": hist_src.index(),
+                        "bucket_s": cfg.hist_bucket_s,
+                        "parent_res": cfg.hist_parent_res,
+                        "retention_s": cfg.hist_retention_s,
+                    })
+                    ctype = "application/json"
+                elif path == "/api/hist/chunk":
+                    name = params.get("name") or ""
+                    if not histmod.chunk_name_ok(name):
+                        return _bad_request(
+                            "name= is not a chunk name")
+                    buf = hist_src.chunk_bytes(name)
+                    if buf is None:
+                        start_response("404 Not Found",
+                                       [("Content-Type",
+                                         "application/json")])
+                        return [b'{"error": "no such chunk"}']
+                    data = buf
+                    ctype = "application/octet-stream"
+                else:
+                    start_response("404 Not Found",
+                                   [("Content-Type", "text/plain")])
+                    return [b"not found"]
             elif path == "/api/positions/latest":
                 endpoint = "positions"
                 params = _qs_params(environ.get("QUERY_STRING", ""))
@@ -1545,6 +1992,51 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                 stats.wire_format.labels(endpoint=endpoint,
                                          fmt=fmt).inc()
                 _mk("lookup")
+            elif path.startswith("/api/repl/"):
+                # the replication feed over HTTP (query.repl): any
+                # process holding the feed directory re-exposes its
+                # three artifacts, so remote replicas follow over plain
+                # TCP with the same snapshot-then-tail protocol the
+                # same-host file transport uses
+                if not repl_dir:
+                    return _unavailable(
+                        "replication feed endpoints need "
+                        "HEATMAP_REPL_DIR")
+                from heatmap_tpu_torch.query import repl as replmod
+
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                if path == "/api/repl/meta":
+                    body = json.dumps(replmod.read_meta(repl_dir))
+                elif path == "/api/repl/snapshot":
+                    epoch = params.get("epoch") or \
+                        replmod.read_meta(repl_dir).get("epoch") or ""
+                    snap = replmod.read_snapshot(repl_dir, epoch)
+                    if snap is None:
+                        start_response("404 Not Found",
+                                       [("Content-Type",
+                                         "application/json")])
+                        return [b'{"error": "no snapshot for that '
+                                b'epoch"}']
+                    body = replmod.dumps(snap)
+                elif path == "/api/repl/feed":
+                    epoch = params.get("epoch") or ""
+                    since = _qs_int(params, "since", 0, 1 << 62)
+                    max_n = _qs_int(params, "max", 512, 4096)
+                    meta = replmod.read_meta(repl_dir)
+                    recs = (replmod.read_records(repl_dir, epoch, since,
+                                                 max_n or 512)
+                            if epoch == meta.get("epoch") else [])
+                    body = replmod.dumps({
+                        "epoch": meta.get("epoch"),
+                        "last_seq": meta.get("last_seq", 0),
+                        "min_seq": meta.get("min_seq", 1),
+                        "records": recs,
+                    })
+                else:
+                    start_response("404 Not Found",
+                                   [("Content-Type", "text/plain")])
+                    return [b"not found"]
+                ctype = "application/json"
             elif path == "/metrics":
                 body = _metrics_text(runtime, serve_reg)
                 ctype = "text/plain; version=0.0.4; charset=utf-8"
@@ -1574,6 +2066,7 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                     "enabled": view is not None,
                     "pid": os.getpid(),
                     "mode": (None if view is None else
+                             "replica" if follower is not None else
                              "writer-fed" if refresher is None else
                              "store-fed"),
                     "poisoned": view.poisoned if view is not None else None,
@@ -1583,6 +2076,14 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                     "sse_clients": int(stats.sse_clients.value),
                     "store_grids": store_grids,
                 }
+                if follower is not None:
+                    payload["repl"] = {
+                        "synced": follower.synced,
+                        "epoch": follower.epoch,
+                        "applied_seq": follower.applied,
+                        "seq_lag": follower.seq_lag(),
+                        "healthy": follower.healthy(),
+                    }
                 body = json.dumps(payload)
                 ctype = "application/json"
             elif path == "/healthz":
@@ -1594,8 +2095,8 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
             elif path == "/":
                 body = render_index(refresh_ms, resolutions)
                 ctype = "text/html; charset=utf-8"
-            elif _unported(path) is not None:
-                code, msg = _unported(path)
+            elif path in _UNPORTED:
+                code, msg = _UNPORTED[path]
                 start_response(
                     "503 Service Unavailable" if code == 503
                     else "501 Not Implemented",
@@ -1698,8 +2199,25 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
 
     app.serve_registry = serve_reg
     app.healthz_fn = healthz
+    app.repl_follower = follower
     app.cq_engine = cq_engine
+
+    # the history block the reference's fleet member snapshot publishes
+    # (chunks, covered span, compaction lag, backfills); serve workers
+    # derive it from the store's files since they run no compactor
+    def _hist_block():
+        out: dict = {}
+        if hist_dir:
+            out = dict(_hist_status())
+        if follower is not None and follower.c_backfill is not None:
+            out["backfills"] = int(follower.c_backfill.value)
+        return out or None
+
+    app.hist_fn = (_hist_block if hist_dir or follower is not None
+                   else None)
+    app.hist_reader = hist_reader
     app.span_ring = span_ring
+    # the event-loop core reads these (loop metrics + fan-out wake)
     app.fanout = fanout
     app.serve_stats = stats
     app.view = view
@@ -1708,6 +2226,8 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
     def close():
         if cq_engine is not None:
             cq_engine.close()
+        if follower is not None:
+            follower.stop()
 
     app.close = close
     return app
@@ -1743,6 +2263,19 @@ class _ThreadingWSGIServer(ThreadingMixIn, WSGIServer):
     request_queue_size = 128
 
 
+class _ReusePortWSGIServer(_ThreadingWSGIServer):
+    """SO_REUSEPORT bind: the multi-process serve fleet's workers each
+    bind the SAME port and the kernel balances incoming connections
+    across their accept queues.  Unlike the reference, a socket that
+    cannot take the option raises instead of binding exclusively."""
+
+    def server_bind(self):
+        from heatmap_tpu_torch.utils.netio import set_reuseport
+
+        set_reuseport(self.socket)
+        super().server_bind()
+
+
 class _QuietHandler(WSGIRequestHandler):
     def log_message(self, fmt, *args):  # route access logs through logging
         log.debug("%s %s", self.address_string(), fmt % args)
@@ -1757,24 +2290,40 @@ class _QuietHandler(WSGIRequestHandler):
         return env
 
 
-def _make_http_server(store, cfg, runtime, host, port):
-    """The thread-core server.  Port 0 (the config's ``serve_port`` or the
-    argument) binds an ephemeral port, unlike the reference, which turns
-    it into 5000."""
+def _make_http_server(store, cfg, runtime, host, port,
+                      reuse_port: bool = False):
+    """The server of the core ``cfg.serve_core`` names.  Port 0 (the
+    config's ``serve_port`` or the argument) binds an ephemeral port,
+    unlike the reference, which turns it into 5000."""
     host = host or cfg.serve_host
     if port is None:
         port = cfg.serve_port
     app = make_wsgi_app(store, cfg, runtime)
-    srv = make_server(host, port, app,
-                      server_class=_ThreadingWSGIServer,
-                      handler_class=_QuietHandler)
-    app.serve_stats.core.labels(core="thread").set(1)
+    core = cfg.serve_core
+    try:
+        if core == "epoll":
+            from heatmap_tpu_torch.serve.evloop import EventLoopServer
+
+            srv = EventLoopServer(host, port, app, reuse_port=reuse_port,
+                                  handlers=cfg.serve_loop_handlers)
+        else:
+            srv = make_server(host, port, app,
+                              server_class=(_ReusePortWSGIServer
+                                            if reuse_port
+                                            else _ThreadingWSGIServer),
+                              handler_class=_QuietHandler)
+    except BaseException:
+        app.close()
+        raise
+    app.serve_stats.core.labels(core=core).set(1)
     return srv
 
 
 def serve_forever(store: Store, cfg: Config, runtime=None,
-                  host: str | None = None, port: int | None = None):
-    httpd = _make_http_server(store, cfg, runtime, host, port)
+                  host: str | None = None, port: int | None = None,
+                  reuse_port: bool = False):
+    httpd = _make_http_server(store, cfg, runtime, host, port,
+                              reuse_port=reuse_port)
     log.info("serving on http://%s:%d/", *httpd.server_address)
     try:
         httpd.serve_forever()

@@ -1,10 +1,10 @@
 """Binary tile/delta wire protocol + coalesced SSE fan-out.
 
-A copy of ``heatmap_tpu/serve/wire.py`` without the event-loop core's
-subscriber ring (``serve/evloop.py`` is not ported) and the delivery
-lineage sidecar.  The serve tier's JSON wire format is ~10x the entropy
-of the data it carries: every feature repeats the property keys and
-ships a 7-vertex polygon of ~15-significant-digit coordinate strings
+A copy of ``heatmap_tpu/serve/wire.py`` without the delivery lineage
+sidecar (``Tagged`` frames, ROADMAP A6) and the per-subscriber
+``sub_stats`` of ``/debug/delivery``.  The serve tier's JSON wire format
+is ~10x the entropy of the data it carries: every feature repeats the
+property keys and ships a 7-vertex polygon of ~15-significant-digit coordinate strings
 that are a PURE FUNCTION of the cell id.  This module defines the
 compact columnar frame the read tier negotiates instead (fixed-point
 columnar space-time tile encodings), one schema shared by
@@ -653,6 +653,34 @@ class _Sub:
         return max(0.0, now_mono - b) if b is not None else 0.0
 
 
+class _EvSub:
+    """An event-loop subscriber: NO per-subscriber frame queue.  Its
+    entire pending state is ``cursor`` (position in the channel's
+    shared frame ring) + ``offset`` (bytes of the in-flight frame
+    already written) — two integers, which is what makes fan-out
+    memory O(channels) instead of O(subscribers).  The stall/lag
+    bookkeeping mirrors :class:`_Sub` so the write-stall gauge reads
+    both kinds identically."""
+
+    __slots__ = ("cond", "cursor", "offset", "lagged", "closed",
+                 "write_begin_mono", "last_write_mono", "writes")
+
+    def __init__(self, cursor: int):
+        self.cond = threading.Condition()
+        self.cursor = cursor
+        self.offset = 0
+        self.lagged = False
+        self.closed = False
+        self.write_begin_mono: float | None = None
+        self.last_write_mono: float | None = None
+        self.writes = 0
+
+    def write_stall_s(self, now_mono: float) -> float:
+        """Age of the in-flight event-loop frame write (0 when idle)."""
+        b = self.write_begin_mono
+        return max(0.0, now_mono - b) if b is not None else 0.0
+
+
 class Channel:
     """One coalesced stream: a single pump thread encodes each advance
     once and fans the shared bytes to every subscriber queue."""
@@ -661,6 +689,14 @@ class Channel:
         self.hub = hub
         self.key = key
         self.subs: list[_Sub] = []
+        # event-loop side: one shared bounded frame ring (the single
+        # copy every _EvSub's cursor indexes into) instead of a queue
+        # per subscriber.  next_idx counts frames ever appended; ring
+        # base = next_idx - len(ring); a cursor below base is lagged.
+        self.ev_subs: list[_EvSub] = []
+        self.ring: collections.deque = collections.deque()
+        self.next_idx = 0
+        self.ev_closed = False
         self.alive = True
 
     def try_retire(self) -> bool:
@@ -670,7 +706,7 @@ class Channel:
         and mints a fresh one; a subscriber can never attach to a pump
         that already decided to exit."""
         with self.hub._lock:
-            if self.subs:
+            if self.subs or self.ev_subs:
                 return False
             self.alive = False
             if self.hub._channels.get(self.key) is self:
@@ -684,6 +720,17 @@ class Channel:
         broadcaster itself NEVER blocks on a slow client."""
         with self.hub._lock:
             subs = list(self.subs)
+            had_ev = bool(self.ev_subs)
+            if had_ev:
+                # ONE shared append, regardless of subscriber count;
+                # trimming past the bound is what sheds laggards
+                self.ring.append(data)
+                self.next_idx += 1
+                while len(self.ring) > self.hub.depth:
+                    self.ring.popleft()
+        wake = self.hub.ev_wake
+        if had_ev and wake is not None:
+            wake(self)
         depth = self.hub.depth
         hw = 0
         for s in subs:
@@ -714,6 +761,18 @@ class Channel:
             subs = list(self.subs)
             self.alive = False
             self.hub._channels.pop(self.key, None)
+            had_ev = bool(self.ev_subs)
+            if had_ev and data is not None:
+                self.ring.append(data)
+                self.next_idx += 1
+                while len(self.ring) > self.hub.depth:
+                    self.ring.popleft()
+            # event-loop subscribers drain whatever of the ring they
+            # can still reach, then see the closed latch
+            self.ev_closed = True
+        wake = self.hub.ev_wake
+        if had_ev and wake is not None:
+            wake(self)
         depth = self.hub.depth
         for s in subs:
             with s.cond:
@@ -742,6 +801,11 @@ class FanoutHub:
         self.hw_gauge = hw_gauge
         self._lock = threading.Lock()
         self._channels: dict = {}
+        # set by an EventLoopServer: called with a Channel (outside
+        # the hub lock) after each ring advance, so the loop pumps
+        # that channel's event-loop subscribers.  One call per frame,
+        # never per subscriber.
+        self.ev_wake = None
 
     def subscribe(self, key, pump) -> tuple[Channel, _Sub]:
         sub = _Sub(self.depth)
@@ -759,13 +823,53 @@ class FanoutHub:
                 chan.subs.append(sub)
         return chan, sub
 
+    def subscribe_ev(self, key, pump) -> tuple[Channel, _EvSub]:
+        """Event-loop flavour of :meth:`subscribe`: attaches an
+        :class:`_EvSub` cursor (no queue) at the channel ring's
+        current head.  The pump side is identical — one encode per
+        advance, broadcast to the shared ring."""
+        with self._lock:
+            chan = self._channels.get(key)
+            if chan is None or not chan.alive:
+                chan = Channel(self, key)
+                self._channels[key] = chan
+                sub = _EvSub(chan.next_idx)
+                chan.ev_subs.append(sub)
+                t = threading.Thread(target=self._run, args=(chan, pump),
+                                     daemon=True,
+                                     name=f"sse-fanout-{key}")
+                t.start()
+            else:
+                sub = _EvSub(chan.next_idx)
+                chan.ev_subs.append(sub)
+        return chan, sub
+
+    def shed_ev(self, sub: _EvSub) -> None:
+        """Latch a fallen-behind event-loop subscriber as lagged (its
+        cursor dropped below the ring base) and count the shed."""
+        with sub.cond:
+            if sub.lagged:
+                return
+            sub.lagged = True
+        if self.on_lagged is not None:
+            self.on_lagged()
+
+    def retained_frames(self) -> int:
+        """Total frames currently retained across every channel ring —
+        the whole fan-out buffer memory, O(channels · depth) no matter
+        how many subscribers share them (the
+        ``heatmap_sse_fanout_retained_frames`` gauge)."""
+        with self._lock:
+            return sum(len(c.ring) for c in self._channels.values())
+
     def max_write_stall_s(self) -> float:
         """The worst current write-stall age across all subscribers —
         the ``heatmap_sse_write_stall_seconds`` gauge."""
         now = time.monotonic()
         worst = 0.0
         with self._lock:
-            subs = [s for c in self._channels.values() for s in c.subs]
+            subs = [s for c in self._channels.values()
+                    for s in list(c.subs) + list(c.ev_subs)]
         for s in subs:
             worst = max(worst, s.write_stall_s(now))
         return round(worst, 6)
@@ -775,7 +879,13 @@ class FanoutHub:
             try:
                 chan.subs.remove(sub)
             except ValueError:
-                pass
+                try:
+                    chan.ev_subs.remove(sub)
+                except ValueError:
+                    pass
+            if not chan.ev_subs:
+                # last cursor detached: the shared ring is garbage
+                chan.ring.clear()
         with sub.cond:
             sub.closed = True
             sub.cond.notify()

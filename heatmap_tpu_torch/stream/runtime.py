@@ -359,6 +359,43 @@ class MicroBatchRuntime:
                 delta_log=cfg.delta_log,
                 pyramid_levels=cfg.pyramid_levels,
                 registry=self.registry)
+        # Delta-log view replication (query.repl): with HEATMAP_REPL_DIR
+        # set, every view mutation the writer thread applies is
+        # published to the feed, so serve-only replicas
+        # (HEATMAP_REPL_FEED) hold a hot seq-consistent copy with zero
+        # steady-state store reads.
+        self.repl_pub = None
+        self.hist_compactor = None
+        if self.matview is not None and cfg.repl_dir:
+            from heatmap_tpu_torch.query.repl import DeltaLogPublisher
+
+            # space-time history tier (query/history.py,
+            # HEATMAP_HIST_DIR): the publisher retires rotated
+            # segments into the durable log instead of deleting them,
+            # and a compactor thread folds them into the immutable
+            # chunk store — built BEFORE the publisher so the boot
+            # sweep retires the dead epoch's tail instead of erasing it
+            hist_log = None
+            if cfg.hist_dir:
+                from heatmap_tpu_torch.query.history import (
+                    HistoryCompactor, HistoryLog)
+
+                hist_log = HistoryLog(cfg.hist_dir)
+            self.repl_pub = DeltaLogPublisher(
+                self.matview, cfg.repl_dir,
+                seg_bytes=cfg.repl_seg_bytes,
+                segments=cfg.repl_segments,
+                registry=self.registry,
+                hist=hist_log)
+            if hist_log is not None:
+                self.hist_compactor = HistoryCompactor(
+                    cfg.hist_dir, feed_dir=cfg.repl_dir,
+                    bucket_s=cfg.hist_bucket_s,
+                    parent_res=cfg.hist_parent_res,
+                    retention_s=cfg.hist_retention_s,
+                    registry=self.registry,
+                    interval_s=cfg.hist_compact_s)
+                self.hist_compactor.start()
         # the sink thread: tiles at each flush, positions at each dispatch
         self.writer = AsyncWriter(store, view=self.matview)
         # the metrics snapshot the step thread publishes at each batch end
@@ -1057,7 +1094,20 @@ class MicroBatchRuntime:
             try:
                 self.source.close()
             finally:
-                self.writer.close()
+                try:
+                    self.writer.close()
+                finally:
+                    # AFTER the writer close: every view apply has run
+                    # by now, so the final feed flush + closed-meta
+                    # marker cover the run's full mutation stream even
+                    # when the writer close raised (poisoned)
+                    if self.repl_pub is not None:
+                        self.repl_pub.close()
+                    # AFTER the publisher close: its final flush may
+                    # have rotated one last segment into the history
+                    # log, and the compactor's closing step drains it
+                    if self.hist_compactor is not None:
+                        self.hist_compactor.close()
 
     def run(self, max_batches: int | None = None) -> None:
         """Drive the loop until the source is exhausted (or max_batches),

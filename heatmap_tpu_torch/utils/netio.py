@@ -1,8 +1,11 @@
-"""Socket I/O helpers for the Kafka wire client and the mock broker.
+"""Socket I/O helpers for the Kafka wire client, the mock servers and
+the serve fleet.
 
 A copy of ``heatmap_tpu/utils/netio.py``: one definition of the
 exact-read loop (EINTR-safe via Python's default retry semantics; raises
-ConnectionError on EOF).
+ConnectionError on EOF); and the port's one rule for a socket that must
+share its port with the serve fleet's other workers
+(``set_reuseport``).
 """
 
 from __future__ import annotations
@@ -34,3 +37,15 @@ def recv_exact_or_none(sock: socket.socket, n: int) -> bytes | None:
         return recv_exact(sock, n)
     except ConnectionError:
         return None
+
+
+def set_reuseport(sock: socket.socket) -> None:
+    """Let ``sock`` bind a port the fleet's other workers bind too.  A
+    host without ``SO_REUSEPORT`` raises: the reference logs a warning
+    and binds exclusively, so a fleet could serve on one worker
+    unnoticed."""
+    try:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    except (AttributeError, OSError) as e:
+        raise OSError(f"SO_REUSEPORT unavailable ({e}): a serve worker "
+                      f"cannot share its port") from e

@@ -28,9 +28,12 @@ The bars:
 """
 
 import dataclasses
+import glob
+import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -333,6 +336,9 @@ import heatmap_tpu_torch.models.demo
 import heatmap_tpu_torch.serve.__main__
 import heatmap_tpu_torch.query.continuous
 import heatmap_tpu_torch.query.geom
+import heatmap_tpu_torch.query.history
+import heatmap_tpu_torch.query.repl
+import heatmap_tpu_torch.serve.evloop
 from heatmap_tpu_torch.serve import make_wsgi_app
 from heatmap_tpu_torch.kafka import KafkaClient, Record
 from heatmap_tpu_torch.models.pipelines import PIPELINES
@@ -357,9 +363,11 @@ with MockKafkaBroker() as bootstrap:
     src.close()
 assert len(PIPELINES) == 5 and len(MemorySource([{}]).poll(5)) == 1
 
+ckpt = tempfile.mkdtemp()
 cfg = load_config({}, city="bos", h3_res=9, resolutions=(9,),
                   batch_size=1024, state_capacity_log2=12,
-                  checkpoint_dir=tempfile.mkdtemp())
+                  checkpoint_dir=ckpt, repl_dir=ckpt + "/feed",
+                  hist_dir=ckpt + "/hist")
 store = MemoryStore()
 rt = MicroBatchRuntime(cfg, SyntheticSource(n_events=2048), store,
                        device="cpu")
@@ -367,9 +375,10 @@ rt.run()
 assert store.n_tiles > 0 and store.n_positions > 0
 # the read path over the run's writer-fed view, in process
 app = make_wsgi_app(store, cfg, rt)
-for path in ("/api/tiles/latest", "/api/tiles/delta", "/metrics"):
+for path in ("/api/tiles/latest", "/api/tiles/delta", "/metrics",
+             "/api/tiles/range", "/api/repl/meta", "/api/hist/index"):
     out = []
-    body = b"".join(app({"PATH_INFO": path, "QUERY_STRING": "",
+    body = b"".join(app({"PATH_INFO": path, "QUERY_STRING": "t0=0",
                          "REQUEST_METHOD": "GET"},
                         lambda st, h, e=None: out.append(st)))
     assert out[0].startswith("200") and body, (path, out)
@@ -469,12 +478,10 @@ def test_entry_point_default_pipeline_matches_jax(monkeypatch):
     ("HEATMAP_GOVERN", "1", "0"),
     ("HEATMAP_AUDIT", "true", "false"),
     ("HEATMAP_QUALITY", "1", ""),
-    ("HEATMAP_REPL_DIR", "repl-feed", ""),
-    ("HEATMAP_HIST_DIR", "history", ""),
     ("HEATMAP_TSDB", "1", "0"),
-    ("HEATMAP_SERVE_CORE", "epoll", "thread"),
-    ("HEATMAP_SERVE_WORKERS", "2", "1"),
-    ("HEATMAP_REPL_FEED", "repl-feed", ""),
+    ("HEATMAP_DELIVERY", " On", "no"),
+    ("HEATMAP_TRACE_JSONL", "trace.jsonl", ""),
+    ("HEATMAP_FLIGHTREC_DIR", "flightrec", ""),
 ])
 def test_unported_knob_raises_by_name(knob, on, off):
     """C2: a knob that turns on a subsystem the port lacks raises, naming
@@ -487,18 +494,61 @@ def test_unported_knob_raises_by_name(knob, on, off):
     jax_load_config({knob: off})
 
 
-@pytest.mark.parametrize("field,value,knob", [
-    ("serve_core", "epoll", "HEATMAP_SERVE_CORE"),
-    ("serve_workers", 4, "HEATMAP_SERVE_WORKERS"),
+# the serve tier's second slice (ROADMAP A4b): the knobs the port used
+# to refuse load as in the reference, from the env or as overrides
+_A4B_FIELDS = ("serve_workers", "serve_core", "serve_loop_handlers",
+               "repl_dir", "repl_feed", "repl_seg_bytes", "repl_segments",
+               "repl_poll_ms", "hist_dir", "hist_retention_s",
+               "hist_bucket_s", "hist_parent_res", "hist_compact_s",
+               "hist_backfill")
+
+
+def _a4b(cfg):
+    return {f: getattr(cfg, f) for f in _A4B_FIELDS}
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    {"HEATMAP_REPL_DIR": "repl-feed"},
+    {"HEATMAP_HIST_DIR": "history"},
+    {"HEATMAP_REPL_FEED": "http://127.0.0.1:1"},
+    {"HEATMAP_SERVE_CORE": "epoll"},
+    {"HEATMAP_SERVE_WORKERS": "2"},
+    {"HEATMAP_SERVE_LOOP_HANDLERS": "3", "HEATMAP_REPL_SEG_BYTES": "4096",
+     "HEATMAP_REPL_SEGMENTS": "1", "HEATMAP_REPL_POLL_MS": "10",
+     "HEATMAP_HIST_RETENTION_S": "60.5", "HEATMAP_HIST_BUCKET_S": "60",
+     "HEATMAP_HIST_PARENT_RES": "0", "HEATMAP_HIST_COMPACT_S": "0.25",
+     "HEATMAP_HIST_BACKFILL": "false"},
 ])
-def test_unported_serve_field_raises_past_the_env(field, value, knob):
-    """The unported serve values raise when they come as load_config
-    overrides or through dataclasses.replace, not only from the env."""
-    with pytest.raises(NotImplementedError, match=knob) as e:
-        load_config({}, **{field: value})
-    assert "ROADMAP A4" in str(e.value)
-    with pytest.raises(NotImplementedError, match=knob):
-        dataclasses.replace(load_config({}), **{field: value})
+def test_serve_tier_knobs_load_as_in_jax(env):
+    """The replication, history, epoll and fleet knobs load to the
+    reference's values (they no longer raise)."""
+    assert _a4b(load_config(env)) == _a4b(jax_load_config(env))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("serve_core", "epoll"), ("serve_workers", 4), ("repl_dir", "feed"),
+    ("hist_dir", "hist"), ("repl_feed", "feed")])
+def test_serve_tier_fields_honoured_past_the_env(field, value):
+    """Overrides and dataclasses.replace take the serve tier's values."""
+    assert getattr(load_config({}, **{field: value}), field) == value
+    assert getattr(dataclasses.replace(load_config({}), **{field: value}),
+                   field) == value
+
+
+@pytest.mark.parametrize("env", [
+    {"HEATMAP_SERVE_WORKERS": "0"}, {"HEATMAP_SERVE_CORE": "uring"},
+    {"HEATMAP_SERVE_LOOP_HANDLERS": "0"},
+    {"HEATMAP_REPL_SEG_BYTES": "4095"}, {"HEATMAP_REPL_SEGMENTS": "0"},
+    {"HEATMAP_REPL_POLL_MS": "9"}, {"HEATMAP_HIST_RETENTION_S": "0"},
+    {"HEATMAP_HIST_BUCKET_S": "59"}, {"HEATMAP_HIST_PARENT_RES": "16"},
+    {"HEATMAP_HIST_COMPACT_S": "0"}])
+def test_serve_tier_knobs_validated_as_in_jax(env):
+    with pytest.raises(ValueError) as ref:
+        jax_load_config(env)
+    with pytest.raises(ValueError) as mine:
+        load_config(env)
+    assert str(mine.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("spec", ["count", "count,kalman", "kalman,count",
@@ -561,3 +611,105 @@ def test_trigger_ms_paces_as_in_jax(tmp_path, monkeypatch, default_env):
                                   **axes), SyntheticSource(**src),
                       MemoryStore(), device="cpu", checkpoint_every=0).run()
     assert clock.sleeps == []
+
+
+# --- the serve tier's second slice: both runtimes publishing ------------------
+
+def _feed_records(hmod, dirs):
+    """Every record the run published, in seq order: the segments it
+    retired into its history log and those its feed still holds."""
+    recs = {}
+    for d in (os.path.join(dirs["hist_dir"], "log"), dirs["repl_dir"]):
+        for p in glob.glob(os.path.join(d, "seg-*.jsonl")):
+            for rec in hmod._read_segment(p):
+                recs[rec["seq"]] = rec
+    return [recs[k] for k in sorted(recs)]
+
+
+def _chunks(hmod, hist_dir):
+    out = {}
+    for p in sorted(glob.glob(os.path.join(hist_dir, "chunks", "*.hst"))):
+        with open(p, "rb") as fh:
+            meta, windows = hmod.decode_chunk(fh.read())
+        out[os.path.basename(p)] = (meta, windows)
+    return out
+
+
+def _docs_close(mine, ref):
+    """Ints and strings exact; floats under the module docstring's bars."""
+    assert [d["cellId"] for d in mine] == [d["cellId"] for d in ref]
+    for d, r in zip(mine, ref):
+        assert d.keys() == r.keys(), d["cellId"]
+        for k, v in d.items():
+            if k == "centroid":
+                for a, b in zip(v["coordinates"],
+                                r[k]["coordinates"]):
+                    assert abs(a - b) <= 1e-5, (d["cellId"], a, b)
+            elif isinstance(v, float):
+                assert v == pytest.approx(r[k], rel=1e-6, abs=1e-9), k
+            else:
+                assert v == r[k], (d["cellId"], k)
+
+
+def test_runtimes_publish_equal_feeds_and_chunks(tmp_path, monkeypatch):
+    """Both runtimes with HEATMAP_REPL_DIR and HEATMAP_HIST_DIR over the
+    same stream (HEATMAP_H3_IMPL=native, shared host keys): the same
+    feed records (kinds, seqs, cells, counts exact; floats under the
+    bars), the same chunk files holding the same windows, and a range
+    over the run's span that conserves every event in both apps."""
+    from heatmap_tpu.query import history as jhist
+    from heatmap_tpu.serve import api as japi
+    from heatmap_tpu_torch.query import history as thist
+    from heatmap_tpu_torch.serve import api as tapi
+    from test_torch_serve import call
+
+    _pin_reference(monkeypatch, {})
+    monkeypatch.setenv("HEATMAP_H3_IMPL", "native")
+    t0 = int(time.time()) - 1800
+    src = dict(SOURCE_ARGS, t0=t0)
+    dirs = {pkg: dict(repl_dir=str(tmp_path / pkg / "feed"),
+                      hist_dir=str(tmp_path / pkg / "hist"))
+            for pkg in ("port", "jax")}
+    jcfg = jax_load_config(None, checkpoint_dir=str(tmp_path / "jck"),
+                           store="memory", state_max_log2=CAP_LOG2,
+                           **dirs["jax"], **AXES)
+    jrt = JaxRuntime(jcfg, JaxSyntheticSource(**src), JaxMemoryStore(),
+                     checkpoint_every=0)
+    jrt.run()
+    cfg = load_config(None, checkpoint_dir=str(tmp_path / "tck"),
+                      **dirs["port"], **AXES)
+    rt = MicroBatchRuntime(cfg, SyntheticSource(**src), MemoryStore(),
+                           device="cpu", checkpoint_every=0)
+    rt.run()
+    assert rt.repl_pub is not None and rt.hist_compactor is not None
+    recs = _feed_records(thist, dirs["port"])
+    jrecs = _feed_records(jhist, dirs["jax"])
+    assert len(recs) == len(jrecs) == rt.matview.seq == jrt.matview.seq
+    assert [r["seq"] for r in recs] == list(range(1, len(recs) + 1))
+    for r, j in zip(recs, jrecs):
+        assert (r["kind"], r["seq"]) == (j["kind"], j["seq"])
+        _docs_close(r.get("docs") or [], j.get("docs") or [])
+    chunks = _chunks(thist, dirs["port"]["hist_dir"])
+    jchunks = _chunks(jhist, dirs["jax"]["hist_dir"])
+    assert chunks.keys() == jchunks.keys() and chunks
+    for name, (meta, windows) in chunks.items():
+        jmeta, jwindows = jchunks[name]
+        for m in (meta, jmeta):
+            for wm in m["windows"].values():
+                wm.pop("digest"), wm.pop("epoch")
+        assert meta == jmeta, name
+        assert windows.keys() == jwindows.keys()
+        for ws in windows:
+            _docs_close(windows[ws]["docs"], jwindows[ws]["docs"])
+    # conservation through the history routes, both packages
+    qs = f"t0={t0 - 3600}&t1={t0 + 7200}"
+    for app, close in ((tapi.make_wsgi_app(rt.store, cfg, rt),
+                        "close"),
+                       (japi.make_wsgi_app(jrt.store, jcfg, jrt),
+                        "close_repl")):
+        try:
+            s, _, b = call(app, "/api/tiles/range", qs)
+            agg = json.loads(b)["aggregate"]["features"]
+            assert sum(f["properties"]["count"] for f in agg) == N_EVENTS
+        finally:
+            getattr(app, close)()
