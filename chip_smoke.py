@@ -1974,37 +1974,35 @@ def _read_values(bootstrap, topic, n):
 
 INFER_BATCHES = 16
 INFER_TABLE = (8, 1 << 17)     # (K, M) of the full-table round set
+# round sets at the edges of the rounds kernel's tiling (tiles of 64
+# entities, chunks of 8 rounds, a ring of 4 chunks): (K, M)
+INFER_EDGES = {"m20001": (27, 20_001),   # M not a multiple of 16 or a tile
+               "m5": (27, 5),            # under one tile
+               "k1": (1, 20_000),
+               "k13": (13, 20_000),      # K not a multiple of the chunk
+               "k200": (200, 20_000)}    # the ring wraps many times
 # the filter's constants, as infer/engine.py passes them
 KALMAN_KW = dict(q=0.5, r_m=25.0, gate=13.816, p0_pos=625.0, p0_vel=100.0)
-# f32 operations of one (round, entity) of the rounds scan, each add,
-# subtract, multiply, divide and compare counted once and the hypot as one
-# (selects not counted; a lower bound): the clamp 1, dt2 and dt3 3, the
-# predicted covariance 42, the predicted position 4, the innovation 2,
-# S and its determinant 6, its inverse 4, the NIS 9, the gain 24, the
-# updated state 16, B = (I - KH) Pp 64, the Joseph covariance 90, the gate
-# 1 and the speed 1
-ROUND_OPS = 267
-
-
-def rounds_work(valid) -> tuple[float, float]:
-    """(bytes, operations) the rounds scan needs on these inputs: per
-    (round, entity) z 8, dt 4, valid 1 and reseed 1 in and nis 4, tele 1,
-    spd 4 and inn 8 out; per entity x and P in and out, 160 B; ROUND_OPS
-    for each valid (round, entity) (an invalid lane needs no filter
-    work)."""
-    k, m = valid.shape
-    return 31.0 * k * m + 160.0 * m, float(ROUND_OPS) * int(valid.sum())
 
 
 def rounds_check(torch, kalman, args, dev):
     """The kernel against its plain version on the card on one round set
-    (numpy args of filter_rounds): identical share and max abs difference
-    per output, the kernel's time, the plain version's, the bound, and
+    (numpy args of filter_rounds, staged with the planes pitched as the
+    engine stages them): identical share and max abs difference per
+    output, the kernel's time, the plain version's, the bound, and
     filter_rounds' host time with its copies on the engine's stream.
     Bar: exact on every output (both round op by op on the card)."""
-    x, P, z, dt, valid, reseed = args
+    from heatmap_tpu_torch.infer import roundset
+
+    valid, reseed, dt = args[4], args[5], args[3]
     consts = kalman.filter_consts(**KALMAN_KW)
-    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
+    k, m = valid.shape
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in args[:2]]
+    for a in args[2:]:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        ins.append(kalman.pitched(k, m, a.shape[2:], t.dtype, dev))
+        ins[-1].copy_(t)
     got = kalman.kalman_rounds(*ins, consts)
     ref = kalman.filter_rounds_reference(*ins, consts)
     torch.cuda.synchronize()
@@ -2027,7 +2025,7 @@ def rounds_check(torch, kalman, args, dev):
         t0 = time.perf_counter()
         kalman.filter_rounds(*args, **KALMAN_KW, device=dev, staging=staging)
         host.append((time.perf_counter() - t0) * 1e3)
-    n_bytes, n_ops = rounds_work(valid)
+    n_bytes, n_ops = roundset.rounds_work(valid)
     bms, by = bound_ms(n_bytes, n_ops)
     return {"k": int(valid.shape[0]), "m": int(valid.shape[1]),
             "valid_lanes": int(valid.sum()),
@@ -2041,29 +2039,32 @@ def rounds_check(torch, kalman, args, dev):
             "filter_rounds_host_ms": float(np.median(host))}
 
 
+def rounds_empty_check(torch, kalman, dev):
+    """M = 0: the wrapper launches nothing and counts nothing, and hands
+    back outputs of the right shapes."""
+    k = 27
+    before = kalman.kalman_rounds.launches
+    ins = [torch.empty((0, 4), device=dev), torch.empty((0, 4, 4), device=dev),
+           *(kalman.pitched(k, 0, tail, dtype, dev) for tail, dtype in (
+               ((2,), torch.float32), ((), torch.float32),
+               ((), torch.bool), ((), torch.bool)))]
+    out = kalman.kalman_rounds(*ins, kalman.filter_consts(**KALMAN_KW))
+    shapes = [tuple(t.shape) for t in out]
+    if (kalman.kalman_rounds.launches != before
+            or shapes != [(0, 4), (0, 4, 4), (k, 0), (k, 0), (k, 0),
+                          (k, 0, 2)]):
+        raise AssertionError(f"kalman_rounds at M = 0: launches "
+                             f"{kalman.kalman_rounds.launches - before}, "
+                             f"shapes {shapes}")
+    return {"k": k, "m": 0, "launches": 0, "shapes": shapes}
+
+
 def table_round_set(k, m):
-    """A full table's round set from the seed: warm states, a
-    constant-velocity walk with GPS noise, 1% teleports, 10% empty lanes,
-    1% handoff re-seeds (half of the teleport lanes among them, where the
-    re-seed takes precedence over the gate), and 1% each of dt = 0 and
-    dt < 0 (the kernel's clamp), so every branch of the kernel is held
-    against the plain version."""
-    rng = np.random.default_rng(SEED)
-    x = rng.normal(0, 300, (m, 4)).astype(np.float32)
-    P = np.zeros((m, 4, 4), np.float32)
-    P[:, [0, 1, 2, 3], [0, 1, 2, 3]] = rng.uniform(5, 50, (m, 4))
-    t = np.cumsum(rng.uniform(1, 10, (k, m)), axis=0)
-    z = (x[None, :, :2] + x[None, :, 2:] * t[..., None]
-         + rng.normal(0, 10, (k, m, 2))).astype(np.float32)
-    jump = rng.random((k, m)) < 0.01
-    z[jump] += np.float32(50_000.0)
-    dt = np.diff(t, axis=0, prepend=0.0).astype(np.float32)
-    dt[rng.random((k, m)) < 0.01] = np.float32(0.0)
-    back = rng.random((k, m)) < 0.01
-    dt[back] = -dt[back]
-    valid = rng.random((k, m)) < 0.9
-    reseed = (rng.random((k, m)) < 0.01) | (jump & (rng.random((k, m)) < 0.5))
-    return x, P, z, dt, valid, reseed
+    """A round set from the seed that takes every branch of the kernel
+    (``roundset.round_set``)."""
+    from heatmap_tpu_torch.infer import roundset
+
+    return roundset.round_set(k, m, SEED)
 
 
 def infer_source():
@@ -2144,6 +2145,9 @@ def phase_infer(torch, run_pipeline, snap_kernel, ckpt_root, dev):
     if not all(lanes.values()):
         raise AssertionError(f"the full-table round set misses a branch of "
                              f"the kernel: {lanes}")
+    edges = {name: rounds_check(torch, kalman, table_round_set(k, m), dev)
+             for name, (k, m) in INFER_EDGES.items()}
+    edges["m0"] = rounds_empty_check(torch, kalman, dev)
     # the path, counts set to 0 just before it
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2215,7 +2219,7 @@ def phase_infer(torch, run_pipeline, snap_kernel, ckpt_root, dev):
            "tiles": len(docs), "tiles_with_velocity": len(vel_docs),
            "count_docs_equal_kalman_off": True,
            "table_vs_cpu_plain": agree, "peak_mem_bytes": peak_mem,
-           "round_sets": sets}
+           "round_sets": sets, "edge_sets": edges}
     emit(out)
     return out
 
@@ -2599,14 +2603,25 @@ class LagProbe:
 
 def wait_replicas(port, seq, n_pids, timeout=300):
     """Polls /debug/view until ``n_pids`` distinct workers behind the port
-    answered with ``seq`` applied; returns their pids."""
+    answered with ``seq`` applied; returns their pids.  A fleet names its
+    port before its workers listen on it, so until the deadline a refused
+    connection means a worker is still starting."""
+    import urllib.error
+
     done = set()
     deadline = time.monotonic() + timeout
     while len(done) < n_pids:
         if time.monotonic() > deadline:
             raise AssertionError(f"replicas at seq {seq}: {done} of "
                                  f"{n_pids} workers")
-        v = json.loads(http_get(port, "/debug/view")[2])
+        try:
+            body = http_get(port, "/debug/view")[2]
+        except urllib.error.URLError as e:
+            if not isinstance(e.reason, ConnectionRefusedError):
+                raise
+            time.sleep(0.05)
+            continue
+        v = json.loads(body)
         if v["mode"] != "replica":
             raise AssertionError(f"a worker serves in mode {v['mode']}")
         if v["repl"]["applied_seq"] == seq:
@@ -2981,6 +2996,10 @@ def main() -> int:
         "full_table": {k: infer["round_sets"]["full_table"][k] for k in (
             "k", "m", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")},
+        "edge_sets": {name: {k: v[k] for k in (
+            "k", "m", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err") if k in v}
+            for name, v in infer["edge_sets"].items()},
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,9 +7,11 @@ interface, and loaded with ``ctypes``.  The host C++ codecs
 CRC32C, the BSON encoders of tile and position ops, the f64 H3 snap) build
 with ``g++``
 into one library, ``NATIVE_LIB``, with the reference's flags.  Every
-library lands in ``build/heatmap_tpu_torch/`` under the repository root,
-named by the hash of its sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  A missing compiler or a failed
+library lands in ``build_dir()``: the directory ``HEATMAP_NATIVE_CACHE``
+names, read at each build as the reference reads it, else
+``build/heatmap_tpu_torch/`` under the repository root.  It is named by
+the hash of its sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  A missing compiler or a failed
 build raises with the command and its output: no caller gets a plain
 version in place of a kernel or a codec.
 
@@ -75,6 +77,12 @@ def _sources(source: str) -> tuple[str, ...]:
     return NATIVE_SOURCES if source == NATIVE_LIB else (source,)
 
 
+def build_dir() -> Path:
+    """Where libraries build: ``HEATMAP_NATIVE_CACHE`` when set and not
+    empty, else ``BUILD_DIR``."""
+    return Path(os.environ.get("HEATMAP_NATIVE_CACHE") or BUILD_DIR)
+
+
 def library_path(source: str) -> Path:
     """Where ``source`` (a path relative to the package, or ``NATIVE_LIB``)
     builds to."""
@@ -84,7 +92,7 @@ def library_path(source: str) -> Path:
         h.update((PKG_DIR / src).read_bytes())
     h.update(" ".join(GXX_FLAGS if native else NVCC_FLAGS).encode())
     stem = NATIVE_LIB if native else Path(source).stem
-    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> Path:
@@ -95,7 +103,7 @@ def build(source: str) -> Path:
     srcs = [str(PKG_DIR / s) for s in _sources(source)]
     cmd = ([find_gxx(), *GXX_FLAGS] if source == NATIVE_LIB
            else [find_nvcc(), *NVCC_FLAGS]) + srcs
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True,
                           text=True)

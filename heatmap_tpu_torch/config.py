@@ -78,12 +78,20 @@ UNPORTED_KNOBS = {
     "HEATMAP_GOVERN": (_flag_on, "A7, the governor"),
     "HEATMAP_AUDIT": (_flag_on, "A6, observability"),
     "HEATMAP_QUALITY": (_flag_on, "A5, the inference quality "
-                                  "observatory, after A4"),
+                                  "observatory, after A6b"),
     "HEATMAP_TSDB": (_flag_on, "A6, observability"),
     # the feed's publish stamps (obs/delivery.py: on for 1|true|yes|on)
     "HEATMAP_DELIVERY": (_delivery_on, "A6, observability"),
     "HEATMAP_TRACE_JSONL": (bool, "A6, observability"),
     "HEATMAP_FLIGHTREC_DIR": (bool, "A6, observability"),
+    # the batch trace window into a directory (stream/trace.py)
+    "HEATMAP_PROFILE_DIR": (bool, "A6a, the run's own introspection"),
+    # the supervisor's member channel (obs/xproc.py) and liveness beacon
+    "HEATMAP_SUPERVISOR_CHANNEL": (bool, "A7, the process fleet"),
+    "HEATMAP_HEARTBEAT_FILE": (bool, "A7, the process fleet"),
+    # jax.distributed and a mesh (parallel/multihost.py, stream/__main__)
+    "HEATMAP_COORDINATOR": (bool, "A8, the mesh"),
+    "NUM_SHARDS": (lambda v: int(v) > 1, "A8, the mesh"),
 }
 
 

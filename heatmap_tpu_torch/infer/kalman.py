@@ -20,6 +20,13 @@ needs the outputs at once; on the CPU it runs the plain version,
 ``filter_rounds_reference``, which applies the reference's ``_round`` to
 (M,) tensors round by round in the reference's order of operations.  K and
 M are not padded: nothing here compiles per shape.
+
+The kernel moves its round planes with TMA, which takes rows 16-byte
+aligned.  So on the card every (K, M) plane (valid, reseed, dt, z and the
+outputs) has its rows ``ld = row_pitch(M)`` entities apart, M rounded up
+to 16, and the kernel gets the ``[:, :M]`` views of (K, ld) buffers
+(``pitched``); ``kalman_rounds`` raises on a CUDA plane whose pitch it
+cannot take.  The plain version takes the same views, or any others.
 """
 
 from __future__ import annotations
@@ -49,6 +56,27 @@ def pad_pow2(n: int, floor: int = 8) -> int:
     if n <= floor:
         return floor
     return 1 << int(n - 1).bit_length()
+
+
+# the row pitch of the round planes on the card, in entities: TMA takes
+# global rows 16 bytes apart, and a row of a byte plane (valid, reseed,
+# tele) is one byte an entity
+PITCH = 16
+
+
+def row_pitch(m: int) -> int:
+    """Entities from one row of a round plane to the next on the card:
+    ``m`` rounded up to ``PITCH``."""
+    return -(-m // PITCH) * PITCH
+
+
+def pitched(k: int, m: int, tail: tuple, dtype, device,
+            ld: int | None = None) -> torch.Tensor:
+    """An uninitialised (k, m, *tail) round plane whose rows lie ``ld``
+    (by default ``row_pitch(m)``) entities apart: the ``[:, :m]`` view of
+    a (k, ld, *tail) buffer."""
+    ld = row_pitch(m) if ld is None else ld
+    return torch.empty((k, ld, *tail), dtype=dtype, device=device)[:, :m]
 
 
 def filter_consts(q: float, r_m: float, gate: float, p0_pos: float,
@@ -143,7 +171,7 @@ def filter_rounds_reference(x, P, z, dt, valid, reseed, consts):
 def _launcher():
     lib = _build.load(SOURCE)
     fn = lib.kalman_rounds_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
                    + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 7)
     fn.restype = ctypes.c_int
     return fn
@@ -156,11 +184,16 @@ _SHAPES = {"x": ("m", 4), "P": ("m", 4, 4), "z": ("k", "m", 2),
 _OUT_SHAPES = (("x", torch.float32), ("P", torch.float32),
                ("dt", torch.float32), ("valid", torch.bool),
                ("dt", torch.float32), ("z", torch.float32))
-# byte alignment of the kernel's vector loads and stores (float4, float2)
-_ALIGN = {"x": 16, "z": 8}
+# byte alignment of every base the kernel's TMA maps start at
+_ALIGN = 16
 
 
-def _check(name: str, t: torch.Tensor, k: int, m: int, device) -> None:
+def _check(name: str, t: torch.Tensor, k: int, m: int, device):
+    """Dtype, shape, device and layout of the tensor ``name`` names (an
+    output by the input it is shaped like).  x and P are contiguous; a
+    round plane holds its entities side by side in each row, the rows any
+    distance apart.  Returns the plane's row pitch in entities (None for x
+    and P, and for a plane of at most one row, whose pitch nothing reads)."""
     want = tuple(k if d == "k" else m if d == "m" else d
                  for d in _SHAPES[name])
     dtype = torch.bool if name in ("valid", "reseed") else torch.float32
@@ -171,37 +204,79 @@ def _check(name: str, t: torch.Tensor, k: int, m: int, device) -> None:
                          f"{tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the rounds take contiguous tensors")
-    if t.data_ptr() % _ALIGN.get(name, 1):
-        raise ValueError(f"{name}: not {_ALIGN[name]}-byte aligned")
+    if name in ("x", "P"):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the rounds take contiguous tensors")
+        return None
+    if k and not t[0].is_contiguous():
+        raise ValueError(f"{name}: the rounds take rows of adjacent "
+                         f"entities")
+    if k <= 1:
+        return None
+    width = 2 if name == "z" else 1  # floats an entity
+    if t.stride(0) % width:
+        raise ValueError(f"{name}: row stride {t.stride(0)} is not a whole "
+                         f"number of entities")
+    return t.stride(0) // width
+
+
+def kernel_pitch(tensors: dict, pitches, k: int, m: int) -> int:
+    """The one row pitch ``ld`` of the round planes that the kernel takes:
+    shared by every plane, >= ``m``, a multiple of ``PITCH``, every base
+    16-byte aligned; raises otherwise.  ``pitches`` are ``_check``'s."""
+    found = {p for p in pitches if p is not None}
+    if len(found) > 1:
+        raise ValueError(f"kalman_rounds: the round planes' row pitches "
+                         f"differ ({sorted(found)} entities); the kernel "
+                         f"takes one")
+    ld = found.pop() if found else row_pitch(m)
+    if ld < m or ld % PITCH:
+        raise ValueError(f"kalman_rounds: row pitch {ld} for {m} entities;"
+                         f" TMA takes rows a multiple of {PITCH} entities "
+                         f"apart (stage the planes with kalman.pitched)")
+    for name, t in tensors.items():
+        if t.data_ptr() % _ALIGN:
+            raise ValueError(f"kalman_rounds: {name} not {_ALIGN}-byte "
+                             f"aligned")
+    return ld
 
 
 def kalman_rounds(x, P, z, dt, valid, reseed, consts, out=None):
     """The rounds scan on tensors: the CUDA kernel on CUDA tensors, the
     plain version on CPU tensors; any other device raises.  ``consts`` is
     ``filter_consts``'s tuple; ``out`` optionally gives the six output
-    tensors (x', P', nis, tele, spd, inn) for the kernel to write.
-    ``kalman_rounds.launches`` counts the kernel's launches."""
+    tensors (x', P', nis, tele, spd, inn) for the kernel to write.  On the
+    card the round planes, in and out, share one row pitch that
+    ``kernel_pitch`` accepts (``pitched`` makes such planes); outputs it
+    allocates are pitched so.  ``kalman_rounds.launches`` counts the
+    kernel's launches."""
     k, m = valid.shape
     ins = dict(x=x, P=P, z=z, dt=dt, valid=valid, reseed=reseed)
-    for name, t in ins.items():
-        _check(name, t, k, m, x.device)
+    pitches = [_check(name, t, k, m, x.device) for name, t in ins.items()]
     if x.device.type == "cpu":
         return filter_rounds_reference(x, P, z, dt, valid, reseed, consts)
+    ld = kernel_pitch(ins, pitches, k, m) if m else 0
     if x.device.type != "cuda":
         raise ValueError(f"kalman_rounds: no kernel for {x.device}")
     if out is None:
         out = tuple(torch.empty_like(ins[like], dtype=dtype)
+                    if like in ("x", "P")
+                    else pitched(k, m, ins[like].shape[2:], dtype, x.device,
+                                 ld)
                     for like, dtype in _OUT_SHAPES)
-    for (like, _), t in zip(_OUT_SHAPES, out):
-        _check(like, t, k, m, x.device)
+    pitches = [_check(like, t, k, m, x.device)
+               for (like, _), t in zip(_OUT_SHAPES, out)]
     if m == 0:  # nothing to launch, so nothing to count
         return out
+    kernel_pitch({f"out{i}": t for i, t in enumerate(out)}, [ld, *pitches],
+                 k, m)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(*(t.data_ptr() for t in ins.values()), k, m,
+        err = _launcher()(*(t.data_ptr() for t in ins.values()), k, m, ld,
                           *consts, *(t.data_ptr() for t in out), stream)
+    if err < 0:
+        raise RuntimeError(f"kalman_rounds: encoding a TMA tensor map "
+                           f"failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"kalman_rounds kernel launch failed: CUDA "
                            f"error {err}")
@@ -215,10 +290,12 @@ kalman_rounds.launches = 0
 class RoundsStaging:
     """A CUDA stream of its own and reused buffers for ``filter_rounds``:
     pinned host buffers for the copies and device buffers for the
-    kernel's inputs and outputs, each grown to the largest call seen.
-    The call's copy -> kernel -> copy runs on this stream and ends in a
-    wait for it, so it never queues behind the fold's work on the
-    runtime's stream."""
+    kernel's inputs and outputs, each grown to the largest call seen.  A
+    round plane's buffers, host and device alike, are (K, ld) with ``ld =
+    row_pitch(M)``, so each copy moves one block and the kernel gets the
+    ``[:, :M]`` views.  The call's copy -> kernel -> copy runs on this
+    stream and ends in a wait for it, so it never queues behind the fold's
+    work on the runtime's stream."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -237,32 +314,41 @@ class RoundsStaging:
 
     def run(self, arrays: dict, consts):
         k, m = arrays["valid"].shape
-        shapes = {name: tuple(k if d == "k" else m if d == "m" else d
-                              for d in dims)
+        ld = row_pitch(m)
+        # each buffer's shape, a round plane's with its rows ld apart
+        shapes = {name: tuple(k if d == "k" else ld if d == "m" else d
+                              for d in dims) if dims[0] == "k"
+                  else (m, *dims[1:])
                   for name, dims in _SHAPES.items()}
+
+        def view(name, t):
+            return t[:, :m] if _SHAPES[name][0] == "k" else t
+
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             ins = []
             for name, a in arrays.items():
                 dtype = torch.bool if a.dtype == bool else torch.float32
                 h = self._buf(self._host, name, shapes[name], dtype,
                               pin_memory=True)
-                h.numpy()[...] = a
+                view(name, h.numpy())[...] = a
                 d = self._buf(self._dev, name, shapes[name], dtype,
                               device=self.device)
                 d.copy_(h, non_blocking=True)
-                ins.append(d)
+                ins.append(view(name, d))
             outs = [self._buf(self._dev, f"out{i}", shapes[like], dtype,
                               device=self.device)
                     for i, (like, dtype) in enumerate(_OUT_SHAPES)]
-            kalman_rounds(*ins, consts, out=tuple(outs))
+            kalman_rounds(*ins, consts,
+                          out=tuple(view(like, d) for (like, _), d
+                                    in zip(_OUT_SHAPES, outs)))
             host = []
             for i, ((like, dtype), d) in enumerate(zip(_OUT_SHAPES, outs)):
                 h = self._buf(self._host, f"out{i}", shapes[like], dtype,
                               pin_memory=True)
                 h.copy_(d, non_blocking=True)
-                host.append(h)
+                host.append(view(like, h.numpy()))
             self.stream.synchronize()
-            return tuple(h.numpy().copy() for h in host)
+            return tuple(h.copy() for h in host)
 
 
 def filter_rounds(x: np.ndarray, P: np.ndarray, z: np.ndarray,

@@ -569,7 +569,7 @@ def test_quality_knob_still_raises_naming_its_item():
     with pytest.raises(NotImplementedError, match="HEATMAP_QUALITY") as e:
         load_config({"HEATMAP_QUALITY": "1",
                      "HEATMAP_REDUCERS": "count,kalman"})
-    assert "ROADMAP A5" in str(e.value) and "after A4" in str(e.value)
+    assert "ROADMAP A5" in str(e.value) and "after A6b" in str(e.value)
 
 
 # --- the runtimes ------------------------------------------------------------

@@ -310,6 +310,24 @@ def test_the_port_loads_its_own_library():
     assert tnative.NativeDecoder()._lib is lib
 
 
+def test_native_cache_knob_decides_where_the_port_builds(monkeypatch,
+                                                        tmp_path):
+    """HEATMAP_NATIVE_CACHE names the build directory, read at build time
+    as the reference reads it; unset, the libraries go to BUILD_DIR."""
+    cache = tmp_path / "native-cache"
+    monkeypatch.setenv("HEATMAP_NATIVE_CACHE", str(cache))
+    monkeypatch.setattr(_build, "_loaded", {})
+    lib = _build.load(_build.NATIVE_LIB)
+    path = _build.library_path(_build.NATIVE_LIB)
+    assert path.parent == cache and path.is_file()
+    assert lib._name == str(path)
+    assert _build.library_path("infer/csrc/kalman_rounds.cu").parent == cache
+    assert tnative.crc32c_native(b"123456789") == 0xE3069283
+    monkeypatch.delenv("HEATMAP_NATIVE_CACHE")
+    assert _build.build_dir() == _build.BUILD_DIR
+    assert _build.library_path(_build.NATIVE_LIB).parent == _build.BUILD_DIR
+
+
 def test_missing_gxx_raises_and_nothing_falls_back(monkeypatch, tmp_path):
     """PATH holds no g++ and no library is built yet: the build, the
     decoder and the CRC raise; no Python codec stands in."""

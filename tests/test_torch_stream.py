@@ -482,6 +482,12 @@ def test_entry_point_default_pipeline_matches_jax(monkeypatch):
     ("HEATMAP_DELIVERY", " On", "no"),
     ("HEATMAP_TRACE_JSONL", "trace.jsonl", ""),
     ("HEATMAP_FLIGHTREC_DIR", "flightrec", ""),
+    ("HEATMAP_PROFILE_DIR", "trace", ""),
+    ("HEATMAP_SUPERVISOR_CHANNEL", "channel.json", ""),
+    ("HEATMAP_HEARTBEAT_FILE", "heartbeat", ""),
+    ("HEATMAP_COORDINATOR", "127.0.0.1:1234", ""),
+    ("NUM_SHARDS", "2", "1"),
+    ("NUM_SHARDS", "4", "0"),
 ])
 def test_unported_knob_raises_by_name(knob, on, off):
     """C2: a knob that turns on a subsystem the port lacks raises, naming
