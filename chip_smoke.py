@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (heatmap_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase below
+    python3 chip_smoke.py obs 3     # the build, then the obs phase's runs
+                                    # in 3 pairs (off, on / on, off / ...)
 
 Phases, one JSON line each:
 
@@ -188,6 +190,26 @@ Phases, one JSON line each:
                 max), the feed's bytes, rotations and snapshot bytes, the
                 compactor's seconds a segment and chunk bytes, and the
                 range, at and diff times.
+14. obs         the run's own introspection (ROADMAP A6a): synthetic_backfill
+                at the serve phase's widths and t0, the writer's app
+                attached, twice back to back: the knobs off, then on (on:
+                HEATMAP_TRACE_JSONL, HEATMAP_FLIGHTREC_DIR with
+                HEATMAP_FLIGHTREC_ALWAYS=1, HEATMAP_PROFILE_DIR over
+                batches 4-7, a 1 s SLO watchdog, /debug/stacks read once).
+                Checks: one snap launch a batch; one trace record a batch
+                with the reference's keys in the ring, at /trace/recent
+                and in the JSONL; a closed lineage record a batch crossing
+                every stage, and an event-age p50; the profiler window's
+                one Chrome-trace file with exactly 4 snap_cell kernel
+                events and the 4 batches annotated;
+                heatmap_device_hbm_watermark_bytes equal to
+                torch.cuda.max_memory_allocated(); the flight record
+                written at close with the reference's keys and at most one
+                watchdog dump (with its /healthz verdict); the two
+                runs' docs equal.  Printed: events/s and p50
+                batch of each run (and outside the profiler window), the
+                reference spans' p50s from /metrics.json, the summed
+                compile count, /healthz's checks.
 
 Then one line listing every kernel (launches on the main path and in
 every later phase, agreement with its plain version, its time, the plain
@@ -2885,11 +2907,296 @@ def phase_repl(torch, snap_kernel, ckpt_root, dev, serve):
     return out
 
 
-def main() -> int:
+# the obs phase: the run's own introspection (ROADMAP A6a) over the serve
+# phase's deployment, with its knobs off and then on
+OBS_PROFILE_SKIP = 4        # the profiler window: batches 4..7
+OBS_PROFILE_BATCHES = 4
+# the trace record's keys (heatmap_tpu/stream/runtime.py::tracering.record)
+TRACE_KEYS = {"seq", "epoch", "t_wall", "latency_ms", "spans_ms", "n_events",
+              "n_late", "overflow_groups", "late_dropped"}
+# the flight record's top-level keys on the reference's single-device path
+FLIGHT_KEYS = {"reason", "t_wall", "pid", "trace_tail", "lineage_tail",
+               "metrics", "config", "run_state", "audit", "quality",
+               "runtimeinfo", "stacks"}
+
+
+def obs_env(tmp):
+    """The knobs of the instrumented run."""
+    return {"HEATMAP_TRACE_JSONL": f"{tmp}/trace.jsonl",
+            "HEATMAP_FLIGHTREC_ALWAYS": "1",
+            "HEATMAP_PROFILE_DIR": f"{tmp}/prof",
+            "HEATMAP_PROFILE_SKIP": str(OBS_PROFILE_SKIP),
+            "HEATMAP_PROFILE_BATCHES": str(OBS_PROFILE_BATCHES),
+            "HEATMAP_SLO_WATCHDOG_S": "1"}
+
+
+def profile_window(torch, dev, prof_dir, batches):
+    """The profiler window's one Chrome-trace file: its kernel events
+    named after the snap kernel, and the batches annotated in it."""
+    files = sorted(os.listdir(prof_dir))
+    if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+        raise AssertionError(f"profiler window wrote {files}")
+    with open(os.path.join(prof_dir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    snaps = [e for e in events if e.get("cat") == "kernel"
+             and "snap_cell_kernel" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    annotated = sorted({e["name"] for e in events
+                        if str(e.get("name", "")).startswith("microbatch#")})
+    want = [f"microbatch#{OBS_PROFILE_SKIP + i}" for i in range(batches)]
+    if sorted(annotated, key=lambda s: int(s.split("#")[1])) != want:
+        raise AssertionError(f"profiler window annotated {annotated}")
+    want_snaps = batches if dev.type == "cuda" else 0
+    if len(snaps) != want_snaps:
+        raise AssertionError(
+            f"profiler window holds {len(snaps)} snap_cell kernel events "
+            f"({len(kernels)} kernel events in all) for {batches} batches: "
+            f"the CUDA activity (CUPTI) did not trace the card")
+    return {"file": files[0], "bytes": os.path.getsize(
+                os.path.join(prof_dir, files[0])),
+            "snap_kernel_events": len(snaps), "kernel_events": len(kernels),
+            "snap_kernel_us": [e.get("dur") for e in snaps],
+            "batches_annotated": annotated}
+
+
+def obs_run(torch, snap_kernel, ckpt_dir, dev, on: bool, t0: int):
+    """synthetic_backfill at its preset widths from ``t0`` (the serve
+    phase's shift, one for both runs), the writer's app attached; ``on`` sets the introspection knobs (trace
+    export, flight recorder with HEATMAP_FLIGHTREC_ALWAYS, a profiler
+    window, a 1 s watchdog) and reads /debug/stacks once before the run.
+    Returns the run's numbers, checks and docs."""
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.obs.lineage import STAGES
+    from heatmap_tpu_torch.serve import start_background, stop_background
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+    from heatmap_tpu_torch.stream.source import SyntheticSource
+
+    tmp = f"{ckpt_dir}/obs"
+    os.makedirs(tmp)
+    env = obs_env(tmp) if on else {}
+    saved = {k: os.environ.get(k) for k in obs_env(tmp)}
+    for k in saved:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    p = get_pipeline("synthetic_backfill")
+    cfg = dataclasses.replace(p.config, checkpoint_dir=f"{ckpt_dir}/ck",
+                              serve_port=0,
+                              flightrec_dir=f"{tmp}/fr" if on else "")
+    store = MemoryStore()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        rt = MicroBatchRuntime(cfg, SyntheticSource(t0=t0, **SERVE_SOURCE),
+                               store, device=dev)
+        httpd, thread, port = start_background(store, cfg, rt)
+        try:
+            if on:
+                status, _, b, _ = http_get(port, "/debug/stacks?n=5")
+                if status != 200 or not json.loads(b)["running"]:
+                    raise AssertionError(f"/debug/stacks: {status} {b}")
+            snap_kernel.latlng_to_cell_kernel.launches = 0
+            t_start = time.monotonic()
+            rt.run()
+            wall = time.monotonic() - t_start
+            launches = snap_kernel.latlng_to_cell_kernel.launches
+            metrics_json = json.loads(http_get(port, "/metrics.json")[2])
+            traces = json.loads(http_get(
+                port, "/trace/recent?n=1024")[2])["traces"]
+            fresh = json.loads(http_get(port, "/debug/freshness?n=256")[2])
+            status, _, hb, _ = http_get(port, "/healthz")
+            health = json.loads(hb)
+            text = http_get(port, "/metrics")[2].decode()
+        finally:
+            stop_background(httpd, thread)
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    m = rt.metrics
+    n = m["batches"]
+    want = n if dev.type == "cuda" else 0
+    if launches != want or m["events_valid"] != MAIN_EVENTS:
+        raise AssertionError(f"obs run (on {on}): {launches} snap launches "
+                             f"in {n} batches, {m['events_valid']} events")
+    # one trace record a batch, with the reference's keys, in the ring, at
+    # /trace/recent and (on) in the JSONL export
+    recs = rt.tracering.recent(1024)
+    bad = [r for r in traces if set(r) != TRACE_KEYS]
+    if len(recs) != n or len(traces) != n or bad:
+        raise AssertionError(f"{len(recs)} trace records, {len(traces)} at "
+                             f"/trace/recent, for {n} batches; keys "
+                             f"{sorted(set(bad[0])) if bad else None}")
+    if on:
+        with open(f"{tmp}/trace.jsonl") as fh:
+            lines = [json.loads(x) for x in fh]
+        if [x["epoch"] for x in lines] != list(range(n)):
+            raise AssertionError(f"the JSONL export holds {len(lines)} "
+                                 f"records for {n} batches")
+    # every closed lineage record crosses every stage (the view is on)
+    recs_l = fresh["records"]
+    if (len(recs_l) != n or any(set(r["stages"]) != set(STAGES)
+                                for r in recs_l)
+            or sum(r["n_events"] for r in recs_l) != MAIN_EVENTS
+            or "event_age_p50_s" not in fresh["summary"]):
+        raise AssertionError(f"/debug/freshness: {len(recs_l)} records, "
+                             f"summary {fresh['summary']}")
+    # the batches outside the profiler window (epochs 4-7): their step
+    # times and the events they folded
+    outside = [i for i in range(n) if not OBS_PROFILE_SKIP <= i
+               < OBS_PROFILE_SKIP + OBS_PROFILE_BATCHES]
+    n_ev = {r["epoch"]: r["n_events"] for r in recs}
+    out = {"on": on, "events": m["events_valid"], "batches": n,
+           "wall_s": wall, "events_per_s": m["events_valid"] / wall,
+           "p50_batch_ms": m["p50_batch_ms"],
+           "p50_batch_ms_outside_window": float(np.median(
+               [rt.batch_ms[i] for i in outside])),
+           "events_per_step_s_outside_window": (
+               sum(n_ev[i] for i in outside)
+               / (sum(rt.batch_ms[i] for i in outside) / 1e3)),
+           "window_batch_ms": rt.batch_ms[
+               OBS_PROFILE_SKIP:OBS_PROFILE_SKIP + OBS_PROFILE_BATCHES],
+           "snap_launches": launches,
+           "p50_span_ms_reference": {
+               k[len("span_"):-len("_p50_ms")]: v
+               for k, v in metrics_json.items()
+               if k.startswith("span_") and k.endswith("_p50_ms")},
+           "batch_latency_p50_ms": metrics_json["batch_latency_p50_ms"],
+           "event_age_p50_s": fresh["summary"]["event_age_p50_s"],
+           "freshness_p50_s": metrics_json.get("freshness_p50_s"),
+           "trace_records": len(recs), "lineage_records": len(recs_l),
+           "healthz": {"status": health["status"],
+                       "checks": health["checks"]}}
+    # compiles: builds or loads during a wrapped step (the kernels were
+    # loaded by the earlier phases, so none is expected here)
+    out["compile_total"] = sum(
+        c.value for c in rt.registry._families[
+            "heatmap_compile_total"].children.values())
+    if dev.type == "cuda":
+        # the watermark reads the allocator's peak: one more sample after
+        # the close sees the peak torch.cuda.max_memory_allocated reports
+        rt.runtimeinfo.memory.sample()
+        wm = rt.registry._families[
+            "heatmap_device_hbm_watermark_bytes"].labels(
+                device=str(dev.index)).value
+        peak = torch.cuda.max_memory_allocated(dev)
+        if wm != peak:
+            raise AssertionError(f"heatmap_device_hbm_watermark_bytes "
+                                 f"{wm} != max_memory_allocated {peak}")
+        out["hbm_watermark_bytes"] = wm
+        out["max_memory_allocated"] = peak
+        out["exposition_has_watermark"] = (
+            f'heatmap_device_hbm_watermark_bytes{{device="{dev.index}"}}'
+            in text)
+    if on:
+        out["profile"] = profile_window(torch, dev, f"{tmp}/prof",
+                                        OBS_PROFILE_BATCHES)
+        dumps = []
+        for name in sorted(os.listdir(f"{tmp}/fr")):
+            with open(f"{tmp}/fr/{name}") as fh:
+                dumps.append(json.load(fh))
+        close = [d for d in dumps if d["reason"].startswith("clean close")]
+        watch = [d for d in dumps if "healthz" in d]
+        wd = rt.slo_watchdog.n_captures
+        if (len(close) != 1 or set(close[0]) != FLIGHT_KEYS
+                or len(watch) != wd or wd > 1
+                or len(dumps) != len(close) + len(watch)):
+            raise AssertionError(
+                f"flight records: {[d['reason'] for d in dumps]}, keys "
+                f"{sorted(close[0]) if close else None}, {wd} watchdog "
+                f"captures")
+        out["flight_records"] = {
+            "close_keys": sorted(close[0]),
+            "watchdog_dumps": [{"reason": d["reason"],
+                                "healthz_status": d["healthz"]["status"]}
+                               for d in watch]}
+    docs = (dict(store._tiles), dict(store._positions))
+    del rt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, docs
+
+
+# the obs phase's runs, back to back: the knobs off, then on (the serve
+# phase's two view-on runs, the same deployment without the app, give the
+# spread between runs in the same call)
+OBS_RUNS = (False, True)
+
+
+def phase_obs(torch, snap_kernel, ckpt_root, dev):
+    """synthetic_backfill with the introspection knobs off, then on, back
+    to back on the same card: events/s and p50 batch of each
+    (outside the profiler window too), the reference spans' p50s, one
+    trace record a batch, closed lineage records, the profiler window's
+    snap_cell kernel events, the HBM watermark against the allocator's
+    peak, the flight records; the on run's docs equal to the off run's."""
+    t0 = (int(time.time()) // 300 - 1) * 300
+    runs, docs = [], []
+    for i, on in enumerate(OBS_RUNS):
+        r, d = obs_run(torch, snap_kernel, f"{ckpt_root}/obs{i}", dev, on,
+                       t0)
+        runs.append(r)
+        docs.append(d)
+        if d != docs[0]:
+            raise AssertionError(f"obs run {i} (on {on}): its docs differ "
+                                 f"from the first run's")
+    out = {"phase": "obs", "source": dict(SERVE_SOURCE, t0="now-aligned"),
+           "runs": runs, "docs_equal": True}
+    for label, on in (("off", False), ("on", True)):
+        mine = [r for r in runs if r["on"] == on]
+        out[f"events_per_s_{label}"] = [r["events_per_s"] for r in mine]
+        out[f"p50_batch_ms_outside_window_{label}"] = [
+            r["p50_batch_ms_outside_window"] for r in mine]
+    emit(out)
+    return out
+
+
+def obs_pairs(torch, snap_kernel, dev, n_pairs: int) -> None:
+    """The obs phase's runs in ``n_pairs`` pairs after an uncounted warm
+    run, each pair's order the other's reverse (off, on, then on, off,
+    ...): every run's line, then
+    the medians of each side, so the layer's cost is read against the
+    spread between runs of one side in the same call."""
+    t0 = (int(time.time()) // 300 - 1) * 300
+    root = tempfile.mkdtemp(prefix="chip_smoke-obs-")
+    runs = []
+    try:
+        # a first run, not counted: it loads the kernels and warms the
+        # allocator, which the whole smoke run's earlier phases do
+        obs_run(torch, snap_kernel, f"{root}/warm", dev, False, t0)
+        for i in range(2 * n_pairs):
+            on = (i % 2 == 0) == (i // 2 % 2 == 1)
+            r, _ = obs_run(torch, snap_kernel, f"{root}/r{i}", dev, on, t0)
+            emit({"obs_pair_run": i, **{k: r[k] for k in (
+                "on", "events_per_s", "events_per_step_s_outside_window",
+                "p50_batch_ms", "p50_batch_ms_outside_window",
+                "window_batch_ms")}})
+            runs.append(r)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"obs_pairs": n_pairs}
+    for label, on in (("off", False), ("on", True)):
+        mine = [r for r in runs if r["on"] == on]
+        for k in ("events_per_s", "events_per_step_s_outside_window",
+                  "p50_batch_ms_outside_window"):
+            vals = sorted(r[k] for r in mine)
+            out[f"{k}_{label}"] = {"median": float(np.median(vals)),
+                                   "min": vals[0], "max": vals[-1]}
+    emit(out)
+
+
+def main(argv=()) -> int:
+    """The whole smoke run; ``obs N`` runs the build and ``obs_pairs``
+    with N pairs instead (a measurement of the obs phase's knobs)."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if argv and (len(argv) != 2 or argv[0] != "obs"):
+        print("usage: chip_smoke.py [obs N_PAIRS]", file=sys.stderr)
         return 2
     from heatmap_tpu_torch import _build
     from heatmap_tpu_torch.hexgrid import snap_kernel
@@ -2899,6 +3206,14 @@ def main() -> int:
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     phase_build(_build)
+    if argv:
+        obs_pairs(torch, snap_kernel, dev, int(argv[1]))
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True)
+        print(smi.stdout.strip().splitlines()[0], flush=True)
+        return 0
     snap = phase_snap(torch, snap_kernel, dev)
     phase_fold_check(torch, dev)
 
@@ -2943,6 +3258,7 @@ def main() -> int:
         infer = phase_infer(torch, run_pipeline, snap_kernel, ckpt_root, dev)
         serve = phase_serve(torch, snap_kernel, ckpt_root, dev)
         repl = phase_repl(torch, snap_kernel, ckpt_root, dev, serve)
+        obs = phase_obs(torch, snap_kernel, ckpt_root, dev)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     # the rounds kernel's numbers at the main path's shape: the round set
@@ -2970,6 +3286,10 @@ def main() -> int:
         "launches_infer_phase": infer["snap_launches"],
         "launches_serve_phase": [r["snap_launches"] for r in serve["runs"]],
         "launches_repl_phase": repl["snap_launches"],
+        "launches_obs_phase": [r["snap_launches"] for r in obs["runs"]],
+        "obs_profile_window_kernel_events": [
+            r["profile"]["snap_kernel_events"] for r in obs["runs"]
+            if r["on"]],
         "max_abs_err": main_err,
         "identical_share": main_share,
         "ms": snap["ms"],
@@ -3013,4 +3333,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -47,6 +47,9 @@ NATIVE_SOURCES = ("native/decoder.cpp", "native/tile_ops.cpp",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# libraries this process has built or loaded (``load`` of a source not
+# loaded before): the compile tracker's probe (obs.runtimeinfo)
+_n_loads = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -120,12 +123,19 @@ def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if needed.  Loaded
     with ``RTLD_LOCAL`` (ctypes' default), so its symbols never bind to
     another library that exports the same names."""
+    global _n_loads
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
             lib = ctypes.CDLL(str(build(source)))
             _loaded[source] = lib
+            _n_loads += 1
         return lib
+
+
+def loads() -> int:
+    """Libraries built or loaded by this process so far."""
+    return _n_loads
 
 
 # every kernel source of the package, built together by ``build_all``

@@ -76,16 +76,12 @@ UNPORTED_KNOBS = {
     "HEATMAP_SHARDS": (lambda v: int(v) > 1, "A7, the process fleet"),
     "HEATMAP_SHARD_INDEX": (lambda v: int(v) != 0, "A7, the process fleet"),
     "HEATMAP_GOVERN": (_flag_on, "A7, the governor"),
-    "HEATMAP_AUDIT": (_flag_on, "A6, observability"),
+    "HEATMAP_AUDIT": (_flag_on, "A6c, integrity and delivery"),
     "HEATMAP_QUALITY": (_flag_on, "A5, the inference quality "
                                   "observatory, after A6b"),
-    "HEATMAP_TSDB": (_flag_on, "A6, observability"),
+    "HEATMAP_TSDB": (_flag_on, "A6b, the telemetry time machine"),
     # the feed's publish stamps (obs/delivery.py: on for 1|true|yes|on)
-    "HEATMAP_DELIVERY": (_delivery_on, "A6, observability"),
-    "HEATMAP_TRACE_JSONL": (bool, "A6, observability"),
-    "HEATMAP_FLIGHTREC_DIR": (bool, "A6, observability"),
-    # the batch trace window into a directory (stream/trace.py)
-    "HEATMAP_PROFILE_DIR": (bool, "A6a, the run's own introspection"),
+    "HEATMAP_DELIVERY": (_delivery_on, "A6c, integrity and delivery"),
     # the supervisor's member channel (obs/xproc.py) and liveness beacon
     "HEATMAP_SUPERVISOR_CHANNEL": (bool, "A7, the process fleet"),
     "HEATMAP_HEARTBEAT_FILE": (bool, "A7, the process fleet"),
@@ -136,6 +132,19 @@ class Config:
     grow_margin: str = "worst"
     # batches polled, padded and copied to the device ahead of the fold
     prefetch_batches: int = 1
+    flightrec_dir: str = ""            # HEATMAP_FLIGHTREC_DIR: directory
+                                       # for post-mortem flight records
+                                       # (obs.flightrec): on an abnormal
+                                       # exit or SIGTERM the runtime dumps
+                                       # its trace tail, lineage tail,
+                                       # metrics snapshot and config
+                                       # there.  Empty disables.  A normal
+                                       # close writes nothing unless
+                                       # HEATMAP_FLIGHTREC_ALWAYS=1.
+    lineage_tail: int = 256            # HEATMAP_LINEAGE_TAIL: closed
+                                       # freshness-lineage records kept
+                                       # for /debug/freshness and the
+                                       # flight recorder (obs.lineage)
     trigger_ms: int = 0                # 0 = as fast as possible (ref default)
     refresh_ms: int = 5000             # the UI's poll period (REFRESH_MS)
     serve_host: str = "127.0.0.1"
@@ -337,6 +346,8 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         grow_margin=e.get("HEATMAP_GROW_MARGIN", Config.grow_margin),
         prefetch_batches=_int(e, "HEATMAP_PREFETCH_BATCHES",
                               Config.prefetch_batches),
+        flightrec_dir=e.get("HEATMAP_FLIGHTREC_DIR", Config.flightrec_dir),
+        lineage_tail=_int(e, "HEATMAP_LINEAGE_TAIL", Config.lineage_tail),
         trigger_ms=_int(e, "TRIGGER_MS", Config.trigger_ms),
         store=e.get("HEATMAP_STORE", Config.store),
         shard_res=_int(e, "HEATMAP_SHARD_RES", Config.shard_res),
@@ -426,6 +437,9 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         raise ValueError(
             f"HEATMAP_PREFETCH_BATCHES must be in 0..32, "
             f"got {cfg.prefetch_batches}")
+    if cfg.lineage_tail < 1:
+        raise ValueError(
+            f"HEATMAP_LINEAGE_TAIL must be >= 1, got {cfg.lineage_tail}")
     object.__setattr__(cfg, "reducers", parse_reducers(
         ",".join(cfg.reducers) if isinstance(cfg.reducers, (tuple, list))
         else cfg.reducers))

@@ -11,6 +11,7 @@ on the device, and ``PairView`` is one pair's checkpoint adapter
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -103,6 +104,22 @@ class MultiAggregator:
         self.states: list[TileState] = [
             init_state(capacity, hist_bins, self.device) for _ in self.pairs]
         self._uniq_res = list(dict.fromkeys(p.res for p in self.params))
+        # the step's entry points, the reference's two jitted programs:
+        # the in-program snap, and the fold of host-snapped prekeys
+        self._step = self._fold
+        self._step_pre = self._fold
+        # host wall spent in step dispatch, per local shard (one here):
+        # the runtime's heatmap_device_dispatch_seconds reads it
+        self.device_seconds = [0.0]
+        self.n_steps = 0
+
+    def instrument(self, wrap) -> None:
+        """Wrap the step's entry points with a compile tracker
+        (obs.runtimeinfo.CompileTracker.wrap) under the reference's fn
+        labels, ``multi_step`` and ``multi_step_pre``.  Call once, before
+        the first step."""
+        self._step = wrap("multi_step", self._step)
+        self._step_pre = wrap("multi_step_pre", self._step_pre)
 
     def step_packed_all(self, lat_rad, lng_rad, speed, ts, valid,
                         watermark_cutoff: int, prekeys=None):
@@ -113,10 +130,22 @@ class MultiAggregator:
         pair's step stats ridden in head-row slots 2..7
         (``stats_from_packed``).  ``prekeys``, when given, must hold keys
         for every unique resolution."""
-        if prekeys is not None:
+        t0 = time.monotonic()
+        if prekeys is None:
+            packed = self._step(lat_rad, lng_rad, speed, ts, valid,
+                                watermark_cutoff)
+        else:
             missing = [r for r in self._uniq_res if r not in prekeys]
             if missing:
                 raise ValueError(f"prekeys missing resolutions {missing}")
+            packed = self._step_pre(lat_rad, lng_rad, speed, ts, valid,
+                                    watermark_cutoff, prekeys)
+        self.device_seconds[0] += time.monotonic() - t0
+        self.n_steps += 1
+        return packed
+
+    def _fold(self, lat_rad, lng_rad, speed, ts, valid, watermark_cutoff,
+              prekeys=None):
         new_states, folded = fused_fold(
             self.params, self.states, lat_rad, lng_rad, speed, ts, valid,
             watermark_cutoff, prekeys=prekeys)

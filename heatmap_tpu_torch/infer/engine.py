@@ -30,10 +30,14 @@ owns everything above the filter math:
   forecasts, both pure functions of the current table; their cells come
   from the f64 C++ host snap (hexgrid.native_snap), as the reference's.
 
-The port has no metrics registry yet: the reference's registry families
-are left out, and the counters ``infer_events_folded`` and
-``infer_entities_untracked`` go into the ``counters`` dict the caller
-passes (the runtime's).
+With ``metrics=`` (the runtime's ``stream.metrics.Metrics``) the engine
+registers the reference's families in its registry
+(``heatmap_infer_entities``, ``heatmap_infer_entity_events_total{op}``,
+``heatmap_infer_anomalies_total{reason}``, ``heatmap_infer_fold_seconds``)
+and counts ``infer_events_folded`` and ``infer_entities_untracked``
+through ``metrics.count``, and the cross-shard re-seeds through
+``metrics.drop("handoff", audit=False)``; without one it keeps a
+``Metrics`` of its own (``counters`` reads either).
 
 Axis convention: state is ``[pn, pe, vn, ve]`` (north, east) in meters
 about each entity's f64 reference; serving maps east->``vxKmh``,
@@ -78,14 +82,16 @@ _MAX_ANOMALY_BUFFER = 65536
 class InferenceEngine:
     """Per-entity streaming filter + anomaly/forecast policy."""
 
-    def __init__(self, cfg, device="cuda", counters: dict | None = None,
-                 clock=None):
+    def __init__(self, cfg, device="cuda", metrics=None, clock=None):
+        from heatmap_tpu_torch.obs.registry import DEFAULT_TIME_BUCKETS
+        from heatmap_tpu_torch.stream.metrics import Metrics
+
         self.cfg = cfg
         self.device = torch.device(device)
         # the rounds scan's own CUDA stream and staging buffers
         self._staging = (RoundsStaging(self.device)
                          if self.device.type == "cuda" else None)
-        self.counters = counters if counters is not None else {}
+        self.metrics = metrics if metrics is not None else Metrics()
         self.clock = clock or time.time
         self.capacity = int(cfg.entity_capacity)
         self.ttl_s = float(cfg.entity_ttl_s)
@@ -115,6 +121,42 @@ class InferenceEngine:
         self._last_fold_ms = 0.0
         self._last_wall = 0.0
         self._vel_cache: dict = {}
+        self._tbl_last = {k: 0 for k in (
+            "n_seeded", "n_evicted_ttl", "n_evicted_lru",
+            "n_reseed_handoff", "n_reseed_teleport")}
+        reg = self.metrics.registry
+        reg.gauge(
+            "heatmap_infer_entities",
+            "entities currently tracked in the per-shard slot table "
+            "(bounded by HEATMAP_ENTITY_CAPACITY)",
+            fn=lambda: float(self.table.occupancy))
+        self._ent_fam = reg.counter(
+            "heatmap_infer_entity_events_total",
+            "entity slot-table lifecycle events per op (seeded, "
+            "evicted_ttl, evicted_lru, reseed_handoff, reseed_teleport) "
+            "- seeded == tracked + evicted so occupancy is "
+            "conservation-exact",
+            labels=("op",))
+        for op in ("seeded", "evicted_ttl", "evicted_lru",
+                   "reseed_handoff", "reseed_teleport"):
+            self._ent_fam.labels(op=op)
+        self._anom_fam = reg.counter(
+            "heatmap_infer_anomalies_total",
+            "reason-tagged per-entity anomaly events (stopped, teleport, "
+            "deviation) raised by the Kalman reducer",
+            labels=("reason",))
+        for r in ANOMALY_REASONS:
+            self._anom_fam.labels(reason=r)
+        self._fold_hist = reg.histogram(
+            "heatmap_infer_fold_seconds",
+            "wall time of one reducer fold over a dispatched batch (sort, "
+            "rounds build, Kalman scan, anomaly pass)",
+            buckets=DEFAULT_TIME_BUCKETS)
+
+    @property
+    def counters(self):
+        """The event counters (the metrics' counter dict)."""
+        return self.metrics.counters
 
     # ----------------------------------------------------------- helpers
     def _snap(self, lat_rad: np.ndarray, lng_rad: np.ndarray,
@@ -142,10 +184,9 @@ class InferenceEngine:
         self._last_wall = ts_wall if ts_wall is not None else self.clock()
         dt = time.perf_counter() - t0
         self._last_fold_ms = dt * 1e3
-        self._count("infer_events_folded", n)
-
-    def _count(self, name: str, n: int) -> None:
-        self.counters[name] = self.counters.get(name, 0) + n
+        self._fold_hist.observe(dt)
+        self.metrics.count("infer_events_folded", n)
+        self._sync_table_metrics()
 
     def _fold_locked(self, cols) -> None:
         n = len(cols)
@@ -232,8 +273,8 @@ class InferenceEngine:
                 untracked = np.isin(gid, dropped_ent)
                 newm = np.zeros(m, bool)
                 newm[keep] = True
-                self._count("infer_entities_untracked",
-                            int(dropped_ent.size))
+                self.metrics.count("infer_entities_untracked",
+                                   int(dropped_ent.size))
             fr = grp_start[newm]
             names = [cols.vehicles[v] if v < len(cols.vehicles) else str(v)
                      for v in uveh[newm]]
@@ -356,6 +397,10 @@ class InferenceEngine:
         n_tele = int(tele.sum())
         self.table.n_reseed_handoff += n_handoff
         self.table.n_reseed_teleport += n_tele
+        # the count fold did fold these events: the tag records the
+        # filter discarding cross-shard history, outside the event
+        # conservation identity (audit=False)
+        self.metrics.drop("handoff", n_handoff, audit=False)
         if events:
             self._raise_events(events, slat, slng, st, sv, cols)
 
@@ -369,6 +414,7 @@ class InferenceEngine:
             name = (cols.vehicles[v] if v < len(cols.vehicles)
                     else str(v))
             self._anom_counts[reason] += 1
+            self._anom_fam.labels(reason=reason).inc()
             if len(self._anomalies) >= _MAX_ANOMALY_BUFFER:
                 self._anom_dropped += 1
                 continue
@@ -382,6 +428,18 @@ class InferenceEngine:
                 "score": round(score, 3),
                 "speedKmh": round(spd_ms * 3.6, 2),
             })
+
+    def _sync_table_metrics(self) -> None:
+        ops = {"n_seeded": "seeded", "n_evicted_ttl": "evicted_ttl",
+               "n_evicted_lru": "evicted_lru",
+               "n_reseed_handoff": "reseed_handoff",
+               "n_reseed_teleport": "reseed_teleport"}
+        for attr, op in ops.items():
+            cur = getattr(self.table, attr)
+            delta = cur - self._tbl_last[attr]
+            if delta:
+                self._ent_fam.labels(op=op).inc(delta)
+                self._tbl_last[attr] = cur
 
     # ------------------------------------------------------------ drains
     def drain_anomalies(self) -> list:

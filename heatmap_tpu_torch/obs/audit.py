@@ -6,7 +6,7 @@ A copy of ``doc_hash``, ``_canon`` and ``combine_digests`` from
 per doc (query/history.py), so a compactor restart keeps each window's
 XOR digest exact.  The event-conservation ledger (``AuditState``) and the
 per-window ``DigestTable`` the view keeps under ``HEATMAP_AUDIT=1`` belong
-to observability (ROADMAP A6) and are not ported yet: the port's view
+to the integrity observatory (ROADMAP A6c) and are not ported yet: the port's view
 publishes no ``"dg"`` digest in its feed records.
 """
 

@@ -33,6 +33,11 @@ DEFAULT_TIME_BUCKETS = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
 )
+# Freshness / lag-shaped buckets (seconds): 100 ms .. 1 h (a replay of old
+# events shows the replay lag, which can be large and is the honest answer).
+DEFAULT_LAG_BUCKETS = (
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 300.0, 900.0, 3600.0,
+)
 
 
 def _fmt(v: float) -> str:

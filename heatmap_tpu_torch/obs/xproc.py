@@ -1,11 +1,12 @@
-"""Cross-process file artifacts: the atomic JSON write and the fleet
-staleness budget.
+"""Cross-process file artifacts: the atomic JSON write, the fleet
+staleness budget and the fleet's environment names.
 
-A copy of the two pieces of ``heatmap_tpu/obs/xproc.py`` the replication
-and history tiers use (``atomic_write_json``, ``fleet_max_age_s``).  The
-supervisor channel, member snapshots and episode broadcasts of that module
-belong to the process fleet and observability (ROADMAP A6/A7) and are not
-ported yet.
+A copy of the pieces of ``heatmap_tpu/obs/xproc.py`` the replication and
+history tiers and the flight recorder use (``atomic_write_json``,
+``fleet_max_age_s``), and the names of the supervisor channel and the
+member tag (``ENV_CHANNEL``, ``ENV_FLEET_TAG``).  The channel itself,
+member snapshots and episode broadcasts belong to the process fleet
+(ROADMAP A7) and are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import os
 log = logging.getLogger(__name__)
 
 ENV_FLEET_MAX_AGE = "HEATMAP_FLEET_MAX_AGE_S"
+# the supervisor->member channel file and the member's tag in the fleet
+ENV_CHANNEL = "HEATMAP_SUPERVISOR_CHANNEL"
+ENV_FLEET_TAG = "HEATMAP_FLEET_TAG"
 
 
 def fleet_max_age_s(default: float = 30.0) -> float:

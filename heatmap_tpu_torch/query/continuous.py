@@ -1,7 +1,7 @@
 """Continuous spatial query engine over the materialized-view stream.
 
 A copy of ``heatmap_tpu/query/continuous.py`` without the fleet member
-block (the supervisor channel it is published on is ROADMAP A6/A7).
+block (the supervisor channel it is published on is ROADMAP A7).
 *Standing* queries — register once, get pushed matches forever —
 evaluated off the view's mutation stream, in dense seq order, on the
 writer or on a replica following its feed (query.repl), so query load

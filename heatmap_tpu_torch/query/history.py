@@ -1,7 +1,7 @@
 """Space-time history tier: durable compacted log + time-travel queries.
 
 A copy of ``heatmap_tpu/query/history.py``.  The port's writer publishes
-no ``"dg"`` digests (the audit table is ROADMAP A6), so its own feeds
+no ``"dg"`` digests (the audit table is ROADMAP A6c), so its own feeds
 verify nothing here; a feed that carries them (an audited reference
 writer's) is verified as the reference verifies it.
 
@@ -1204,7 +1204,7 @@ class HistoryCompactor:
     def member_block(self) -> dict:
         """The compact history block (chunks, span, lag, counts) the
         reference's fleet member snapshot publishes; the port has no
-        member snapshot yet (the supervisor channel, ROADMAP A6/A7)."""
+        member snapshot yet (the supervisor channel, ROADMAP A7)."""
         return {"chunks": self._chunks,
                 "chunk_bytes": self._chunk_bytes,
                 "covered_span_s": round(self._span_s, 3),

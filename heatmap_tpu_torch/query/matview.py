@@ -1,7 +1,7 @@
 """TileMatView — the materialized tile view the API reads instead of the Store.
 
 A copy of ``heatmap_tpu/query/matview.py`` without its audit branches
-(the per-window ``DigestTable`` of ``HEATMAP_AUDIT=1``, ROADMAP A6): the
+(the per-window ``DigestTable`` of ``HEATMAP_AUDIT=1``, ROADMAP A6c): the
 view keeps no digest table and its feed records carry no ``"dg"``, as an
 unaudited reference writer's do.
 

@@ -3,7 +3,7 @@
 A copy of ``heatmap_tpu/query/repl.py`` without its delivery-lineage
 (``HEATMAP_DELIVERY`` publish stamps, ``pt``) and integrity-audit
 (per-record ``"dg"`` verification) branches: both belong to
-observability (ROADMAP A6), ``load_config`` refuses ``HEATMAP_DELIVERY``,
+integrity and delivery (ROADMAP A6c), ``load_config`` refuses ``HEATMAP_DELIVERY``,
 and the port's feed bytes equal an unaudited reference writer's with the
 knob off.
 

@@ -22,7 +22,7 @@ parent holds the fleet's port with ``SO_REUSEPORT`` whatever the port, and
 a host without the option raises (the reference would log a warning and
 let each worker bind exclusively, so a fleet could serve on one worker
 unnoticed).  The workers publish no fleet member snapshot: that needs
-the supervisor channel (ROADMAP A6/A7), so ``/fleet/*`` answer 503 on
+the supervisor channel (ROADMAP A7), so ``/fleet/*`` answer 503 on
 every worker.
 """
 

@@ -39,16 +39,24 @@ replication feed (``HEATMAP_REPL_FEED``):
   follower polls.
 - GET / → the embedded Leaflet UI; /metrics.json, /metrics, /healthz,
   /debug/view, /debug/requests.
+- GET /trace/recent[?n=&fields=] (the runtime's batch trace records),
+  /debug/freshness[?n=] (its closed lineage records and event-age
+  summary), /debug/stacks[?n=] (the stack sampler, started on first
+  read); POST /debug/profile[?batches=&skip=&dir=] arms the runtime's
+  profiler window (405 on another method, 409 while a window is pending
+  or active, ``dir=`` only under ``HEATMAP_PROFILE_DIR`` or the temp
+  directory).
 
-Still cut: the delivery lineage, audit, quality, telemetry-history and
-trace surfaces, and the fleet member snapshot a serve worker publishes
-(they need observability and a supervisor channel, ROADMAP A6/A7).  Their
-routes answer as the reference does when that subsystem is absent (503
-with its message: the audit/quality/timeline surfaces, the fleet) or,
-where the reference has no such answer, 501 naming the ROADMAP item
-(``UNPORTED_ROUTES``).  No request path touches the device: the view
-holds host dicts only, and the runtime's metrics come from the snapshot
-its step thread publishes at each batch end (``metrics_snapshot``).
+Still cut: the delivery lineage, audit, quality and telemetry-history
+surfaces, and the fleet member snapshot a serve worker publishes (they
+need their subsystems and a supervisor channel, ROADMAP A5, A6b, A6c,
+A7).  Their routes answer as the reference does when that subsystem is
+absent (503 with its message: the audit/quality/timeline surfaces, the
+fleet) or, where the reference has no such answer, 501 naming the
+ROADMAP item (``UNPORTED_ROUTES``).  No request path touches the device:
+the view holds host dicts only, the runtime's metrics come from the
+snapshot its step thread publishes at each batch end
+(``metrics_snapshot``) and from its registry's families.
 
 Unlike the reference, ``serve_port=0`` binds an ephemeral port
 (``start_background`` returns the one bound).
@@ -93,11 +101,8 @@ _UNPORTED = {
                                "(HEATMAP_SUPERVISOR_CHANNEL)")
        for name in ("metrics", "healthz", "freshness", "delivery", "audit",
                     "quality")},
-    "/trace/recent": (501, _NOT_PORTED.format("A6, observability")),
-    "/debug/freshness": (501, _NOT_PORTED.format("A6, observability")),
-    "/debug/delivery": (501, _NOT_PORTED.format("A6, observability")),
-    "/debug/profile": (501, _NOT_PORTED.format("A6, observability")),
-    "/debug/stacks": (501, _NOT_PORTED.format("A6, observability")),
+    "/debug/delivery": (501, _NOT_PORTED.format(
+        "A6c, integrity and delivery")),
 }
 # every route the table above answers, for the pin in the tests
 UNPORTED_ROUTES = tuple(sorted(_UNPORTED))
@@ -338,6 +343,43 @@ def _inm_match(environ: dict, etag: str) -> bool:
     return False
 
 
+def _sample_serve_freshness(runtime) -> None:
+    """Ingest->serve freshness, sampled at a tiles render: render wall
+    clock minus the newest sink-committed event timestamp (the lineage
+    watermark), clamped at 0.  A runtime-shaped object without a lineage
+    (a view slot without a fold) samples nothing."""
+    lin = getattr(runtime, "lineage", None)
+    g = getattr(runtime, "_g_serve_fresh", None)
+    if lin is None or g is None:
+        return
+    ts = lin.newest_committed_ts
+    if ts is not None:
+        g.set(max(0.0, time.time() - ts))
+
+
+_FIELD_RE = None  # compiled lazily
+
+
+def _parse_fields(raw: str) -> tuple[list, str | None]:
+    """Validate a /trace/recent ``fields=`` projection: up to 16
+    comma-separated identifier-shaped names.  Returns (names, None) or
+    ([], error): the caller answers 400 on error."""
+    global _FIELD_RE
+    if _FIELD_RE is None:
+        import re
+
+        _FIELD_RE = re.compile(r"^[A-Za-z0-9_]{1,64}$")
+    names = [f for f in raw.split(",") if f]
+    if not names:
+        return [], "fields= needs at least one name"
+    if len(names) > 16:
+        return [], "fields= accepts at most 16 names"
+    for f in names:
+        if not _FIELD_RE.match(f):
+            return [], f"invalid field name: {f[:80]!r}"
+    return names, None
+
+
 def positions_feature_collection(store: Store) -> dict:
     features = []
     for doc in store.all_positions():
@@ -373,22 +415,15 @@ def _forecast_body(cells: dict, h_s: int, res: int, blk: dict) -> bytes:
             + ", ".join(feats) + ']}').encode("utf-8")
 
 
-# the runtime snapshot's keys that summarize histograms (the runtime's
-# registry families are A6); /metrics renders the rest as flat series
-_SNAPSHOT_QUANTILE_PREFIXES = ("batch_latency_", "span_")
-# flat keys typed as gauges (heatmap_tpu/stream/metrics.py GAUGE_NAMES)
-_GAUGE_NAMES = frozenset({
-    "state_overflow_last_epoch", "state_capacity_per_shard",
-    "uptime_s", "events_per_sec",
-})
-
-
 def _policy_values(runtime) -> dict:
     """The engine policies this run resolved — one place feeding both
-    /metrics.json keys and the /metrics info series."""
+    /metrics.json keys and the /metrics info series.  The port has no
+    banked merge winner (the reference's hwbank), so
+    ``policy_merge_banked`` is None, as the reference's is unbanked."""
     return {
         "policy_snap_impl": runtime.snap_impl,
         "policy_emit_pull": "prefix" if runtime._prefix_pull else "full",
+        "policy_merge_banked": None,
     }
 
 
@@ -407,37 +442,42 @@ def _metrics_json(runtime) -> dict:
 
 
 def _metrics_text(runtime, serve_registry) -> str:
-    """Prometheus text exposition for /metrics: the app's registry (the
-    serve-tier and view families; on a runtime-attached app the
-    runtime's registry, which holds them), plus, with a runtime, its
-    snapshot counters, the writer's and the source's as flat series and
-    the policy info series."""
-    from heatmap_tpu_torch.obs.registry import (_escape_label,
-                                                render_flat_counters)
+    """Prometheus text exposition for /metrics.  On a serve-only process
+    (runtime=None) the app's own registry (serve-tier counters, the view
+    families) is the body; with a runtime attached those families live in
+    the runtime's registry already, which renders with its counters, the
+    writer's and the source's as flat series and the policy info
+    series."""
+    from heatmap_tpu_torch.obs.registry import _escape_label
 
     if runtime is None:
         return serve_registry.expose_text()
-    flat = {k: v for k, v in runtime.metrics_snapshot().items()
-            if not k.startswith(_SNAPSHOT_QUANTILE_PREFIXES)}
-    flat.update(runtime.writer.counters)
-    flat.update(getattr(runtime.source, "counters", None) or {})
-    lines = render_flat_counters(
-        {k: v for k, v in flat.items() if isinstance(v, (int, float))},
-        prefix="heatmap_", gauge_names=_GAUGE_NAMES)
     pol = _policy_values(runtime)
     labels = ",".join(
         f'{k.removeprefix("policy_")}="{_escape_label(str(v))}"'
         for k, v in pol.items())
-    lines.append("# TYPE heatmap_policy_info gauge")
-    lines.append("heatmap_policy_info{%s} 1" % labels)
-    return serve_registry.expose_text(extra=lines)
+    lines = ["# TYPE heatmap_policy_info gauge",
+             "heatmap_policy_info{%s} 1" % labels]
+    extra = dict(runtime.writer.counters)
+    # the retries are a registry series already (heatmap_sink_retries_
+    # total): a flat copy would emit the series twice
+    extra.pop("sink_retries", None)
+    extra.update(getattr(runtime.source, "counters", None) or {})
+    return runtime.telemetry.expose_text(extra_counters=extra,
+                                         extra_lines=lines)
 
 
 # ---- /healthz SLO evaluation -----------------------------------------
-# Env knob (read per request): HEATMAP_SLO_BATCH_P50_MS, the recent p50
-# batch latency budget (500, the paper's headline bound).  The
-# reference's freshness, event-age, runtime-introspection and supervisor
-# checks come with their subsystems (ROADMAP A6, A7).
+# Env knobs (read per request):
+#   HEATMAP_SLO_BATCH_P50_MS      recent p50 batch latency budget (500,
+#                                 the paper's headline bound)
+#   HEATMAP_SLO_FRESHNESS_P50_S   recent p50 emit freshness budget (60)
+#   HEATMAP_SLO_FRESHNESS_P50_MS  recent p50 end-to-end event age budget
+#                                 (10000 ms): event ts -> sink commit ack
+# plus the runtime-introspection checks (obs.runtimeinfo):
+#   HEATMAP_SLO_RETRACES, HEATMAP_SLO_RETRACE_WINDOW_S,
+#   HEATMAP_SLO_MEM_BYTES.
+# The supervisor checks come with the process fleet (ROADMAP A7).
 def _slo(name: str, default: float) -> float:
     try:
         return float(os.environ.get(name, "") or default)
@@ -448,9 +488,10 @@ def _slo(name: str, default: float) -> float:
 
 
 def healthz_payload(runtime, extra_checks=None) -> tuple[dict, bool]:
-    """(payload, down): SLO checks against the runtime's snapshot.  ok ->
-    degraded on a budget breach; down (serve 503) only when the pipeline
-    cannot make progress — a poisoned sink.
+    """(payload, down): SLO checks against the recent-window histogram
+    quantiles of the runtime's registry.  ok -> degraded on a budget
+    breach; down (serve 503) only when the pipeline cannot make progress
+    — a poisoned sink.
 
     ``extra_checks`` (a callable returning (checks_dict, degraded)) is
     the serve tier's contribution: the view's state and the store
@@ -466,17 +507,39 @@ def healthz_payload(runtime, extra_checks=None) -> tuple[dict, bool]:
         except Exception:  # noqa: BLE001 - a probe bug must not 500 /healthz
             log.exception("serve-tier healthz checks failed")
     if runtime is not None:
-        snap = runtime.metrics_snapshot()
-        if snap.get("batches"):
-            p50_ms = snap["batch_latency_p50_ms"]
+        from heatmap_tpu_torch.obs.runtimeinfo import healthz_checks
+
+        m = runtime.telemetry
+        if m.batch_latency.count:
+            p50_ms = m.batch_latency.quantile(0.5) * 1e3
             budget = _slo("HEATMAP_SLO_BATCH_P50_MS", 500.0)
             ok = p50_ms <= budget
             checks["batch_p50_ms"] = {"value": round(p50_ms, 3),
                                       "budget": budget, "ok": ok}
             degraded |= not ok
+        if m.freshness.count:
+            f50 = m.freshness.quantile(0.5)
+            budget = _slo("HEATMAP_SLO_FRESHNESS_P50_S", 60.0)
+            ok = f50 <= budget
+            checks["freshness_p50_s"] = {"value": round(f50, 3),
+                                         "budget": budget, "ok": ok}
+            degraded |= not ok
+        ea = m.event_age.labels(bound="mean")
+        if ea.count:
+            p50_ms = ea.quantile(0.5) * 1e3
+            budget = _slo("HEATMAP_SLO_FRESHNESS_P50_MS", 10000.0)
+            ok = p50_ms <= budget
+            checks["event_age_p50_ms"] = {"value": round(p50_ms, 3),
+                                          "budget": budget, "ok": ok}
+            degraded |= not ok
+        # the reference's fastpath_pinned warning: the port's runtime
+        # pins no fast-path knob down (one device, no mesh or governor)
         if runtime.writer.poisoned:
             checks["sink"] = {"value": "poisoned", "ok": False}
             down = True
+        ri_checks, ri_degraded = healthz_checks(runtime)
+        checks.update(ri_checks)
+        degraded |= ri_degraded
     status = "down" if down else ("degraded" if degraded else "ok")
     return {"ok": not down, "status": status, "checks": checks}, down
 
@@ -1390,6 +1453,9 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
 
         def _not_modified(etag, ep, vary_accept=False):
             stats.http_304.labels(endpoint=ep).inc()
+            if ep in ("tiles", "delta") and runtime is not None:
+                # what the client sees is still the current view
+                _sample_serve_freshness(runtime)
             vary = ("Accept-Encoding, Accept" if vary_accept
                     else "Accept-Encoding")
             start_response("304 Not Modified",
@@ -1482,6 +1548,8 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                 stats.wire_format.labels(endpoint=endpoint,
                                          fmt=fmt).inc()
                 _mk("lookup")
+                if runtime is not None:
+                    _sample_serve_freshness(runtime)
             elif path == "/api/tiles/delta":
                 endpoint = "delta"
                 params = _qs_params(environ.get("QUERY_STRING", ""))
@@ -1520,6 +1588,9 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                 stats.wire_format.labels(endpoint=endpoint,
                                          fmt=fmt).inc()
                 _mk("lookup")
+                if runtime is not None:
+                    # the delta-polling UI samples the freshness too
+                    _sample_serve_freshness(runtime)
             elif path == "/api/tiles/topk":
                 endpoint = "topk"
                 params = _qs_params(environ.get("QUERY_STRING", ""))
@@ -2042,6 +2113,108 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                 ctype = "text/plain; version=0.0.4; charset=utf-8"
             elif path == "/metrics.json":
                 body = json.dumps(_metrics_json(runtime))
+                ctype = "application/json"
+            elif path == "/trace/recent":
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                n = _qs_int(params, "n", 50, 1024)
+                fields = params.get("fields")
+                ring = getattr(runtime, "tracering", None)
+                traces = ring.recent(n) if ring is not None else []
+                if fields is not None:
+                    # a bounded, validated key projection (missing keys
+                    # drop out)
+                    names, err = _parse_fields(fields)
+                    if err:
+                        return _bad_request(err)
+                    traces = [{k: r[k] for k in names if k in r}
+                              for r in traces]
+                body = json.dumps({"traces": traces})
+                ctype = "application/json"
+            elif path == "/debug/freshness":
+                from heatmap_tpu_torch.obs.lineage import STAGES
+
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                n = _qs_int(params, "n", 32, 256)
+                lin = getattr(runtime, "lineage", None)
+                tel = getattr(runtime, "telemetry", None)
+                body = json.dumps({
+                    "records": lin.tail(n) if lin is not None else [],
+                    "summary": (tel.freshness_summary()
+                                if tel is not None else {}),
+                    "stage_order": list(STAGES),
+                })
+                ctype = "application/json"
+            elif path == "/debug/profile":
+                # POST arms the runtime's profiler window; method-gated,
+                # so a crawler's GET never arms a capture
+                if environ.get("REQUEST_METHOD", "GET") != "POST":
+                    start_response("405 Method Not Allowed",
+                                   [("Allow", "POST"),
+                                    ("Content-Type", "application/json")])
+                    return [b'{"error": "POST required"}']
+                tracer = getattr(runtime, "tracer", None)
+                if tracer is None:
+                    return _unavailable(
+                        "profiler capture needs an attached stream "
+                        "runtime")
+                import tempfile
+
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                batches = _qs_int(params, "batches", 16, 4096)
+                skip = _qs_int(params, "skip", 0, 4096)
+                prof_dir = params.get("dir") or ""
+                if prof_dir:
+                    # the endpoint is auth-free: captures go under the
+                    # operator's HEATMAP_PROFILE_DIR (or the temp
+                    # directory) only
+                    base = (os.environ.get("HEATMAP_PROFILE_DIR")
+                            or tempfile.gettempdir())
+                    root = os.path.realpath(base).rstrip(os.sep)
+                    rp = os.path.realpath(prof_dir)
+                    if rp != root and not rp.startswith(root + os.sep):
+                        return _bad_request(
+                            f"dir= must be under {base} (set "
+                            f"HEATMAP_PROFILE_DIR to change the base)")
+                made_dir = False
+                if not prof_dir:
+                    prof_dir = tempfile.mkdtemp(prefix="heatmap-profile-")
+                    made_dir = True
+                epoch = int(runtime.epoch)
+                if not tracer.arm(prof_dir, batches=max(1, batches),
+                                  skip=skip, base_epoch=epoch):
+                    if made_dir:
+                        # a refusal leaks no tempdir
+                        try:
+                            os.rmdir(prof_dir)
+                        except OSError:
+                            pass
+                    start_response("409 Conflict",
+                                   [("Content-Type", "application/json")])
+                    return [b'{"error": "a profiler capture is already '
+                            b'pending or active"}']
+                body = json.dumps({
+                    "armed": True, "dir": prof_dir,
+                    "batches": max(1, batches), "skip": skip,
+                    "from_epoch": epoch + skip,
+                })
+                ctype = "application/json"
+            elif path == "/debug/stacks":
+                # the sampling stack profiler, started on first read and
+                # left running; GET-only
+                if environ.get("REQUEST_METHOD", "GET") != "GET":
+                    start_response("405 Method Not Allowed",
+                                   [("Allow", "GET"),
+                                    ("Content-Type", "application/json")])
+                    return [b'{"error": "GET required"}']
+                from heatmap_tpu_torch.obs.prof import get_sampler
+
+                sampler = get_sampler()
+                enabled = sampler.ensure_started()
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                n = _qs_int(params, "n", 40, 512)
+                payload = sampler.snapshot(n)
+                payload["enabled"] = enabled
+                body = json.dumps(payload)
                 ctype = "application/json"
             elif path == "/debug/requests":
                 # per-worker request spans: recent completed spans

@@ -3,7 +3,7 @@ hosting the SAME WSGI app wsgiref does — selected by
 ``HEATMAP_SERVE_CORE=epoll`` — with single-encode zero-copy SSE fan-out.
 
 A copy of ``heatmap_tpu/serve/evloop.py`` without the delivery-lineage
-brackets (ROADMAP A6).  Unlike the reference, a listener that cannot set
+brackets (ROADMAP A6c).  Unlike the reference, a listener that cannot set
 ``SO_REUSEPORT`` when asked to raises instead of binding exclusively: a
 ``--workers`` fleet never quietly serves on one worker.
 

@@ -1,7 +1,7 @@
 """Binary tile/delta wire protocol + coalesced SSE fan-out.
 
 A copy of ``heatmap_tpu/serve/wire.py`` without the delivery lineage
-sidecar (``Tagged`` frames, ROADMAP A6) and the per-subscriber
+sidecar (``Tagged`` frames, ROADMAP A6c) and the per-subscriber
 ``sub_stats`` of ``/debug/delivery``.  The serve tier's JSON wire format
 is ~10x the entropy of the data it carries: every feature repeats the
 property keys and ships a 7-vertex polygon of ~15-significant-digit coordinate strings

@@ -1,9 +1,12 @@
 """AsyncWriter — background sink thread overlapping store I/O with compute.
 
 A copy of ``heatmap_tpu/sink/writer.py`` without its audit hooks (the
-integrity observatory is not ported) and without its metrics registry:
-the runtime merges ``counters`` into its metrics.  The materialized tile
-view (``view=``) is fed on this thread right after each tile write.
+integrity observatory is ROADMAP A6c).  With ``metrics=`` (the runtime's
+``stream.metrics.Metrics``) it registers the reference's families: the
+queue depth, the retries counter and the poisoned gauge.  The materialized
+tile view (``view=``) is fed on this thread right after each tile write,
+and ``last_view_seq`` records the view's seq after each apply, which the
+runtime's lineage stamps as the batch's ``view_apply``.
 
 The device step for batch N+1 runs while batch N's docs are upserted; the
 runtime's checkpoint commit waits on ``drain()`` so offsets only advance
@@ -30,7 +33,8 @@ log = logging.getLogger(__name__)
 
 class AsyncWriter:
     def __init__(self, store: Store, max_queue: int = 64,
-                 retries: int = 3, backoff_s: float = 0.2, view=None):
+                 retries: int = 3, backoff_s: float = 0.2, metrics=None,
+                 view=None):
         self.store = store
         # materialized tile view (query.matview): fed on THIS thread
         # right after each tile write returns from the store — i.e.
@@ -40,9 +44,11 @@ class AsyncWriter:
         # Store renders); read-path trouble never takes the pipeline
         # down.
         self.view = view
-        # view seq recorded right after each successful apply.  Written
-        # only on the writer thread; torn reads are impossible (int
-        # store).
+        # view seq recorded right after each successful apply, read by
+        # the runtime's lineage view_applied stamp: the batch whose
+        # commit-ack mark runs next is visible in the view at this seq.
+        # Written only on the writer thread; torn reads are impossible
+        # (int store).
         self.last_view_seq: int | None = None
         self.retries = retries
         self.backoff_s = backoff_s
@@ -56,6 +62,20 @@ class AsyncWriter:
         # and a store that cannot absorb the burst stalls the step thread
         # here
         self._backpressure_s = 0.0
+        self._c_retries = self._g_poisoned = None
+        if metrics is not None:
+            # the queue depth read at scrape time; retries and the poison
+            # live in the registry so /metrics shows sink trouble
+            metrics.gauge("heatmap_sink_queue_depth",
+                          "pending write batches in the async sink queue",
+                          fn=self._q.qsize)
+            self._c_retries = metrics.registry.counter(
+                "heatmap_sink_retries_total",
+                "sink write attempts that failed and were retried")
+            self._g_poisoned = metrics.gauge(
+                "heatmap_sink_poisoned",
+                "1 once a sink write exhausted its retries (writer "
+                "permanently failed; offsets can no longer advance)")
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="sink-writer")
         self._thread.start()
@@ -77,6 +97,8 @@ class AsyncWriter:
                 if attempt == self.retries:
                     raise
                 self._retried += 1
+                if self._c_retries is not None:
+                    self._c_retries.inc()
                 log.warning("sink write failed (attempt %d/%d); retrying "
                             "in %.1fs", attempt + 1, self.retries, delay,
                             exc_info=True)
@@ -115,6 +137,8 @@ class AsyncWriter:
                 log.exception("sink write failed after %d retries",
                               self.retries)
                 self._exc = e
+                if self._g_poisoned is not None:
+                    self._g_poisoned.set(1)
             finally:
                 self._q.task_done()
 

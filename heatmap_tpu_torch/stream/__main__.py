@@ -21,6 +21,11 @@ an unbounded synthetic stream; they run until ``--max-batches`` batches
 are folded (or forever).  ``synthetic_backfill`` ends with its 10M events.
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no ``--device cpu`` it raises.
+
+With ``HEATMAP_FLIGHTREC_DIR`` set, SIGTERM becomes ``SystemExit(143)``
+in the main thread, so the runtime's close sees the unwinding exit and
+writes its flight record, and an ``atexit`` hook dumps for an exit that
+bypasses the close.
 """
 
 from __future__ import annotations
@@ -32,16 +37,40 @@ import json
 from heatmap_tpu_torch.models.pipelines import PIPELINES, get_pipeline
 
 
-def run_pipeline(name: str, max_batches: int | None = None,
-                 device: str = "cuda", checkpoint_dir: str | None = None,
-                 checkpoint_every: int = 20, source=None, store=None,
-                 **overrides):
-    """Run pipeline ``name``; returns (runtime, store).  ``checkpoint_dir``
-    and ``overrides`` (Config fields, e.g. ``kafka_bootstrap``, ``store``)
-    replace the pipeline's settings (which came from the environment when
-    the pipelines were built); ``source`` replaces the pipeline's own
-    source, and ``store`` the one ``make_store`` would build from the
-    config.  The caller closes the store."""
+def install_flightrec_handlers(rt) -> None:
+    """The flight recorder's process hooks for a standalone job (nothing
+    without an armed recorder): SIGTERM raises ``SystemExit(143)`` in the
+    main thread, so ``run()``'s finally reaches the runtime's close, which
+    sees the unwinding exit and dumps; the ``atexit`` hook dumps for an
+    exit that bypasses the close, and does nothing once the close dumped
+    or disarmed the recorder."""
+    rec = rt.flightrec
+    if rec is None:
+        return
+    import atexit
+    import signal
+
+    def _on_term(signum, frame):  # noqa: ARG001
+        raise SystemExit(143)
+
+    try:
+        signal.signal(signal.SIGTERM, _on_term)
+    except ValueError:  # not the main thread (embedded use)
+        pass
+    atexit.register(
+        lambda: rec.dump("atexit: interpreter exit bypassed close()"))
+
+
+def build_runtime(name: str, device: str = "cuda",
+                  checkpoint_dir: str | None = None,
+                  checkpoint_every: int = 20, source=None, store=None,
+                  **overrides):
+    """The runtime of pipeline ``name``, not run yet; returns (runtime,
+    store).  ``checkpoint_dir`` and ``overrides`` (Config fields, e.g.
+    ``kafka_bootstrap``, ``store``) replace the pipeline's settings (which
+    came from the environment when the pipelines were built); ``source``
+    replaces the pipeline's own source, and ``store`` the one
+    ``make_store`` would build from the config."""
     from heatmap_tpu_torch.sink import make_store
     from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
 
@@ -56,6 +85,14 @@ def run_pipeline(name: str, max_batches: int | None = None,
     rt = MicroBatchRuntime(cfg, source if source is not None
                            else p.make_source(cfg), store, device=device,
                            checkpoint_every=checkpoint_every)
+    return rt, store
+
+
+def run_pipeline(name: str, max_batches: int | None = None,
+                 device: str = "cuda", **kwargs):
+    """Run pipeline ``name`` (``build_runtime``'s arguments); returns
+    (runtime, store).  The caller closes the store."""
+    rt, store = build_runtime(name, device=device, **kwargs)
     rt.run(max_batches=max_batches)
     return rt, store
 
@@ -73,8 +110,9 @@ def main(argv=None) -> dict:
 
     store = make_store(get_pipeline(args.pipeline).config)
     try:
-        rt, _ = run_pipeline(args.pipeline, args.max_batches, args.device,
-                             store=store)
+        rt, _ = build_runtime(args.pipeline, args.device, store=store)
+        install_flightrec_handlers(rt)
+        rt.run(max_batches=args.max_batches)
         out = {"pipeline": args.pipeline, "device": str(rt.device),
                "source": type(rt.source).__name__,
                "store": type(store).__name__, **rt.metrics,

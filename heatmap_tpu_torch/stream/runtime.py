@@ -84,8 +84,26 @@ materialized tile view (``matview``, query.matview), which the writer
 thread feeds after each durable tile write and the serve tier reads.  The
 step thread publishes a plain-dict metrics snapshot at each batch end
 (``metrics_snapshot``): an HTTP thread reads that, never the runtime's
-device state.  The mesh and the observability stack of the reference
-runtime are not ported yet.
+device state.
+
+The run's own introspection is the reference's: one registry a runtime
+(``telemetry``, a ``stream.metrics.Metrics``; ``metrics`` stays the
+port's dict of counters, pulls, commits and median spans) with the batch,
+span, freshness, event-age and ring-residency histograms and every drop
+under its closed reason; a trace record a batch (``tracering``, served at
+``/trace/recent``, exported to ``HEATMAP_TRACE_JSONL``); a freshness
+lineage record a polled batch, stamped at poll, dispatch, ring entry,
+flush and the writer's commit ack (``lineage``, ``/debug/freshness``);
+the compile tracker on the fold's entry points and the memory monitor,
+sampled at 1 Hz (``runtimeinfo``); a ``torch.profiler`` window over
+``HEATMAP_PROFILE_DIR`` or ``POST /debug/profile`` (``tracer``); and with
+``HEATMAP_FLIGHTREC_DIR`` the flight recorder, dumped at an abnormal close
+(``flightrec``), and the SLO watchdog with the stack sampler.  The spans
+those read carry the reference's names and boundaries (poll, build, pad,
+transfer, pull, snap, device, sink_submit, prefetch, poll_fetch,
+poll_decode, poll_wait, infer); ``span_ms`` keeps the port's finer ones.
+The mesh and the process fleet of the reference runtime are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -105,14 +123,19 @@ from heatmap_tpu_torch.engine import step
 from heatmap_tpu_torch.engine.multi import MultiAggregator, stats_from_packed
 from heatmap_tpu_torch.engine.state import TileState, to_host
 from heatmap_tpu_torch.engine.step import FUTURE_WINDOWS, I32_MIN, EmitRing
-from heatmap_tpu_torch.obs.registry import Registry
+from heatmap_tpu_torch.obs.lineage import LineageTracker
+from heatmap_tpu_torch.obs.runtimeinfo import RuntimeIntrospection
+from heatmap_tpu_torch.obs.tracebuf import TraceRing
+from heatmap_tpu_torch.obs.xproc import ENV_FLEET_TAG
 from heatmap_tpu_torch.sink.base import (PositionRows, Store, TilePackMeta,
                                          packed_tile_docs)
 from heatmap_tpu_torch.sink.writer import AsyncWriter
 from heatmap_tpu_torch.stream.checkpoint import CheckpointManager
 from heatmap_tpu_torch.stream.events import (EventColumns, parse_events,
                                              slice_columns)
+from heatmap_tpu_torch.stream.metrics import Metrics
 from heatmap_tpu_torch.stream.source import Source
+from heatmap_tpu_torch.stream.trace import Tracer
 
 log = logging.getLogger(__name__)
 
@@ -138,9 +161,11 @@ class _FeedBatch(NamedTuple):
     offset: object       # source offset after this batch's poll
     carried: bool        # rows of this batch's poll are still carried:
                          # its offset may not be committed yet
-    spans: dict          # poll and feed seconds (and the host snap's, on
-                         # the native route), and the source's own poll
-                         # sub-spans (fetch, decode) when it has them
+    spans: dict          # poll and feed seconds (feed split into pad,
+                         # snap on the native route, and transfer), and
+                         # the source's own poll sub-spans (fetch, decode)
+                         # when it has them
+    lineage: dict | None  # the freshness lineage record opened at poll
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -283,11 +308,14 @@ class MicroBatchRuntime:
         # one record per commit: epoch, capture ms on the step thread, and
         # (once landed) background seconds and bytes on disk
         self.commits: list[dict] = []
-        self.counters = {"batches": 0, "events_polled": 0, "events_valid": 0,
-                         "events_late": 0, "events_invalid": 0,
-                         "tiles_emitted": 0, "positions_emitted": 0,
-                         "state_overflow": 0, "state_grown": 0,
-                         "checkpoints": 0}
+        # the runtime's metrics and its one registry (the view's, the
+        # serve tier's, the writer's and the engine's families live in
+        # it too); ``counters`` reads the event counters back under the
+        # port's names
+        self.telemetry = Metrics()
+        self.registry = self.telemetry.registry
+        self._n_batches = 0       # batches folded by this runtime
+        self._n_polled = 0        # events those batches carried
         # emit pulls: flushes in all and by trigger, batches and bytes
         # pulled (these depend on K, the counters above do not)
         self.pulls = {"flushes": 0, "full": 0, "watermark": 0, "grow": 0,
@@ -341,13 +369,11 @@ class MicroBatchRuntime:
             from heatmap_tpu_torch.infer import InferenceEngine
 
             self.infer = InferenceEngine(cfg, device=self.device,
-                                         counters=self.counters)
+                                         metrics=self.telemetry)
         self._maybe_resume()
         # offsets as of the last DISPATCHED batch: checkpoints commit
         # these, so a batch polled but not dispatched always replays
         self._offsets_dispatched = self.source.offset()
-        # the registry the view's and the serve tier's families live in
-        self.registry = Registry()
         # the materialized tile view the writer thread feeds, under
         # HEATMAP_QUERY_VIEW; no store scan here: the serve layer seeds
         # a grid the view has not seen from the store on first access
@@ -397,13 +423,109 @@ class MicroBatchRuntime:
                     interval_s=cfg.hist_compact_s)
                 self.hist_compactor.start()
         # the sink thread: tiles at each flush, positions at each dispatch
-        self.writer = AsyncWriter(store, view=self.matview)
+        self.writer = AsyncWriter(store, metrics=self.telemetry,
+                                  view=self.matview)
+        self._init_introspection()
         # the metrics snapshot the step thread publishes at each batch end
         # (metrics_snapshot); HTTP threads read it under this lock
-        self._t_start = time.monotonic()
         self._snap_lock = threading.Lock()
         self._snapshot: dict = {}
         self._publish_snapshot()
+        # the SLO watchdog and the stack sampler, armed with the flight
+        # recorder; started last, since its thread reads this runtime
+        self.slo_watchdog = None
+        if self.flightrec is not None:
+            from heatmap_tpu_torch.obs.prof import get_sampler
+            from heatmap_tpu_torch.obs.runtimeinfo import SloWatchdog
+
+            get_sampler().ensure_started()
+            self.slo_watchdog = SloWatchdog(self)
+            self.slo_watchdog.start()
+
+    def _init_introspection(self) -> None:
+        """The reference's observability wiring: the profiler window, the
+        trace ring, the lineage, the flight recorder and its sources, the
+        pipeline gauges and the runtime introspection, whose compile
+        tracker wraps the fold's entry points."""
+        cfg = self.cfg
+        self.tracer = Tracer(device=self.device)
+        self.tracering = TraceRing()
+        self._trace_cum = (0, 0, 0)
+        # lineage ids are origin-tagged (``<tag>-<seq>``), the tag the
+        # reference's single-process runtime takes
+        self.lineage = LineageTracker(
+            capacity=cfg.lineage_tail,
+            origin=os.environ.get(ENV_FLEET_TAG) or "p0")
+        self._lineage_open: dict[int, dict] = {}
+        self._carry_polled_at = 0.0  # the lineage poll stamp of a carry
+        self.flightrec = None
+        if cfg.flightrec_dir:
+            import dataclasses
+
+            from heatmap_tpu_torch.obs.flightrec import FlightRecorder
+            from heatmap_tpu_torch.obs.prof import get_sampler
+
+            fr = FlightRecorder(cfg.flightrec_dir)
+            fr.add_source("trace_tail", lambda: self.tracering.recent(64))
+            fr.add_source("lineage_tail", lambda: self.lineage.tail(64))
+            fr.add_source("metrics", lambda: self.telemetry.snapshot())
+            fr.add_source("config", lambda: dataclasses.asdict(self.cfg))
+            fr.add_source("run_state", lambda: {
+                "epoch": self.epoch,
+                "max_event_ts": self.max_event_ts,
+                "ring_pending": len(self._ring),
+                "prefetched": len(self._prefetched),
+                "writer_poisoned": self.writer.poisoned,
+            })
+            # the reference's integrity and quality sources (ROADMAP A6c,
+            # A5): their subsystems are off here, as there by default
+            fr.add_source("audit", lambda: None)
+            fr.add_source("quality", lambda: None)
+            fr.add_source("runtimeinfo", lambda: self.runtimeinfo.snapshot())
+            fr.add_source("stacks", lambda: get_sampler().tail(20))
+            self.flightrec = fr
+        # pipeline-state gauges
+        self._g_watermark = self.telemetry.gauge(
+            "heatmap_watermark_age_seconds",
+            "wall clock minus the event-time high watermark "
+            "(max event ts seen)")
+        self._g_capacity = self.telemetry.gauge(
+            "heatmap_state_capacity_rows",
+            "state slab capacity per shard (rows)")
+        self._g_capacity.set(self.multi.capacity_per_shard)
+        self._g_active = self.telemetry.gauge(
+            "heatmap_state_active_groups_peak",
+            "max live (cell,window) groups seen on any pair")
+        # sampled by serve/api.py at every /api/tiles/latest render
+        self._g_serve_fresh = self.telemetry.gauge(
+            "heatmap_serve_freshness_seconds",
+            "/tiles render wall time minus the newest sink-committed "
+            "event timestamp (ingest-to-serve freshness; NaN before "
+            "the first render)")
+        self._g_serve_fresh.set(float("nan"))
+        # the fold's host dispatch clock, read at scrape time
+        self.telemetry.gauge(
+            "heatmap_device_dispatch_seconds",
+            "cumulative host wall seconds spent dispatching the fused "
+            "device step (one clock per local dispatch stream)",
+            labels=("shard",)).labels(shard="0").fn = (
+                lambda: self.multi.device_seconds[0])
+        self.telemetry.gauge(
+            "heatmap_emit_ring_pending",
+            "packed emit batches parked on device awaiting the next flush",
+            fn=lambda: len(self._ring))
+        self.runtimeinfo = RuntimeIntrospection(
+            self.registry, ring_bytes_fn=lambda: self._ring.nbytes,
+            live_bytes_fn=self._held_bytes, device=self.device)
+        self.multi.instrument(self.runtimeinfo.compile.wrap)
+
+    def _held_bytes(self) -> int:
+        """Bytes of the tensors this runtime holds: the state slabs, the
+        emit ring and the staged feeds of the prefetched batches."""
+        slabs = sum(t.nbytes for st in self.multi.states for t in st)
+        feeds = sum(t.nbytes for e in self._prefetched
+                    for t in e.feed.values())
+        return slabs + self._ring.nbytes + feeds
 
     # ------------------------------------------------------------------
     @property
@@ -559,7 +681,7 @@ class MicroBatchRuntime:
                                  snap_impl=self.snap_impl, extras=extras)
                 rec["background_s"] = time.monotonic() - t1
                 rec["bytes"] = _dir_bytes(self.ckpt._commit_dir(epoch))
-                self.counters["checkpoints"] += 1
+                self.telemetry.count("checkpoints")
             except BaseException as e:  # surfaced on the step thread
                 self._ckpt_err = e
 
@@ -589,6 +711,26 @@ class MicroBatchRuntime:
             self.span_ms["device_fold"].append(start.elapsed_time(end))
 
     @property
+    def counters(self) -> dict:
+        """The run's event counters under the port's names (batches and
+        events_polled of this runtime's batches; the rest read from
+        ``telemetry``, ``state_overflow`` being the reference's
+        ``state_overflow_groups``)."""
+        c = self.telemetry.counters
+        out = {"batches": self._n_batches, "events_polled": self._n_polled}
+        for k in ("events_valid", "events_late", "events_invalid",
+                  "tiles_emitted", "positions_emitted"):
+            out[k] = c[k]
+        out["state_overflow"] = c["state_overflow_groups"]
+        out["state_grown"] = c["state_grown"]
+        out["checkpoints"] = c["checkpoints"]
+        for k in ("state_overflow_last_epoch", "infer_events_folded",
+                  "infer_entities_untracked"):
+            if k in c:
+                out[k] = c[k]
+        return out
+
+    @property
     def metrics(self) -> dict:
         """Counters (the source's transport counters and the writer's
         merged in), emit pulls, slab capacity, commits, and the median
@@ -606,25 +748,9 @@ class MicroBatchRuntime:
         return out
 
     def _publish_snapshot(self) -> None:
-        """Publish the step thread's metrics for readers on other threads,
-        under the reference's ``Metrics.snapshot()`` keys: the counters,
-        ``uptime_s``, ``events_per_sec``, the batch latency p50/p95 and
-        each span's p50 (ms, over the last 512 batches, the reference's
-        histogram window and pick rule).  Reads host lists only."""
-        def q(xs, qq):
-            xs = sorted(xs[-512:])
-            return xs[min(len(xs) - 1, int(qq * len(xs)))] if xs else 0.0
-
-        elapsed = max(time.monotonic() - self._t_start, 1e-9)
-        snap = dict(self.counters)
-        snap["uptime_s"] = round(elapsed, 3)
-        snap["events_per_sec"] = round(
-            self.counters.get("events_valid", 0) / elapsed, 1)
-        snap["batch_latency_p50_ms"] = round(q(self.batch_ms, 0.5), 3)
-        snap["batch_latency_p95_ms"] = round(q(self.batch_ms, 0.95), 3)
-        for k, xs in self.span_ms.items():
-            if xs:
-                snap[f"span_{k}_p50_ms"] = round(q(xs, 0.5), 3)
+        """Publish ``telemetry.snapshot()`` (the reference's
+        ``Metrics.snapshot()`` keys) for readers on other threads."""
+        snap = self.telemetry.snapshot()
         with self._snap_lock:
             self._snapshot = snap
 
@@ -649,7 +775,7 @@ class MicroBatchRuntime:
             if not polled:
                 return None
             cols = parse_events(polled, self._intern_p, self._intern_v)
-        self.counters["events_invalid"] += cols.n_dropped
+        self.telemetry.drop("invalid", cols.n_dropped)
         return cols if len(cols) else None
 
     def _next_batch(self) -> _FeedBatch | None:
@@ -665,21 +791,39 @@ class MicroBatchRuntime:
         t0 = time.monotonic()
         src_spans = {}
         if self._carry_cols is not None:
+            # the carried rows bill their wait since the original poll as
+            # lineage queue time
             cols, self._carry_cols = self._carry_cols, None
+            t_polled = self._carry_polled_at
         else:
             polled = self.source.poll(self.cfg.batch_size)
             src_spans = self.source.take_spans()
             cols = self._build_batch(polled)
+            t_polled = self.lineage.clock()
             if cols is None:
                 return None
         size = self.cfg.batch_size
         if len(cols) > size:
             self._carry_cols = slice_columns(cols, size, len(cols))
+            self._carry_polled_at = t_polled
             cols = slice_columns(cols, 0, size)
         n = len(cols)
         # offsets as of this poll: committed once the batch is dispatched
         # and no row of the poll is carried any more
         offset = self.source.offset()
+        # the freshness lineage opens at poll time over the event-time
+        # extrema of the rows this batch dispatches; clock-skew poison
+        # rows (far-future timestamps) are left out of them, as the fold
+        # drops them
+        ts_col = cols.ts_s
+        sane = ts_col.astype(np.int64) <= int(t_polled) + 3600
+        lin = None
+        if sane.any():
+            tv = ts_col if sane.all() else ts_col[sane]
+            lin = self.lineage.open(
+                n_events=n, ev_min_ts=int(tv.min()),
+                ev_max_ts=int(tv.max()), ev_mean_ts=float(tv.mean()),
+                offset=offset, t_poll=t_polled)
         t1 = time.monotonic()
         pin = self._copy_stream is not None
         host = {}
@@ -695,6 +839,7 @@ class MicroBatchRuntime:
             host[name] = buf
         host["valid"] = torch.zeros(size, dtype=torch.bool, pin_memory=pin)
         host["valid"].numpy()[:n] = True
+        t_pad = time.monotonic()
         snap_s = 0.0
         if self._host_snap is not None:
             # only the live prefix is snapped; the padding keys are masked
@@ -710,19 +855,22 @@ class MicroBatchRuntime:
                     host[f"{name}{res}"] = buf
             snap_s = time.monotonic() - t_snap
         feed, ready = host, None
+        t_xfer = time.monotonic()
         if pin:
             with torch.cuda.stream(self._copy_stream):
                 feed = {k: v.to(self.device, non_blocking=True)
                         for k, v in host.items()}
                 ready = torch.cuda.Event()
                 ready.record()
-        spans = {**src_spans, "poll": t1 - t0,
-                 "feed": time.monotonic() - t1}
+        t2 = time.monotonic()
+        spans = {**src_spans, "poll": t1 - t0, "feed": t2 - t1,
+                 "pad": t_pad - t1, "transfer": t2 - t_xfer}
         if self._host_snap is not None:
             spans["snap"] = snap_s
         return _FeedBatch(cols=cols, n=n, feed=feed, host=host,
                           ready=ready, offset=offset,
-                          carried=self._carry_cols is not None, spans=spans)
+                          carried=self._carry_cols is not None, spans=spans,
+                          lineage=lin)
 
     def _host_batch_max_ts(self, ts_s: np.ndarray) -> int:
         """Watermark advance for one batch, computed on the host with the
@@ -839,7 +987,9 @@ class MicroBatchRuntime:
             raise RuntimeError("slab growth with emits parked in the ring")
         t0 = time.monotonic()
         self.multi.grow(new_cap)
-        self.counters["state_grown"] += 1
+        self.telemetry.count("state_grown")
+        self.telemetry.counters["state_capacity_per_shard"] = new_cap
+        self._g_capacity.set(new_cap)
         log.warning("state slabs grown 2^%d -> 2^%d rows (%d live groups; "
                     "%.2fs)", cap.bit_length() - 1, new_cap.bit_length() - 1,
                     peak, time.monotonic() - t0)
@@ -865,21 +1015,67 @@ class MicroBatchRuntime:
         self.pulls["flushes"] += 1
         self.pulls[reason] += 1
         self.pulls["batches"] += len(flushed)
+        residency = self._ring.last_flush_residency
         batch_max = I32_MIN
-        for bufs, epoch in flushed:
+        for i, (bufs, epoch) in enumerate(flushed):
+            bm = I32_MIN
             for idx, pair in enumerate(self.pairs):
-                batch_max = max(batch_max,
-                                self._account(pair, bufs[idx], epoch))
+                bm = max(bm, self._account(pair, bufs[idx], epoch))
             self.pulls["bytes"] += sum(b.nbytes for b in bufs)
+            if bm > I32_MIN:
+                # freshness at the emit boundary: wall clock minus the
+                # batch's newest event time
+                self.telemetry.freshness.add(time.time() - bm)
+                batch_max = max(batch_max, bm)
+            self._note_flushed(
+                epoch, residency[i] if i < len(residency) else None)
+        self.telemetry.count("emit_pulls", 1)
+        self.telemetry.count("emit_pull_batches", len(flushed))
         # the device's own batch_max_ts heals any undercount of the host's
         self.max_event_ts = max(self.max_event_ts, batch_max)
+        if self.max_event_ts > I32_MIN:
+            self._g_watermark.set(time.time() - self.max_event_ts)
         self._last_flush_cutoff = self._cutoff()
         return t1 - t0, time.monotonic() - t1
+
+    def _note_flushed(self, epoch: int, residency) -> None:
+        """A flushed batch's emit-ring residency and its lineage flush
+        stamp, then a sink-commit mark: the record closes on the writer
+        thread once every write of the batch has been applied."""
+        if residency is not None:
+            self.telemetry.ring_residency.observe(residency[0])
+            self.telemetry.ring_residency_batches.observe(residency[1])
+        rec = self._lineage_open.pop(epoch, None)
+        if rec is None:
+            return
+        self.lineage.flushed(
+            rec, ring_batches=residency[1] if residency else None)
+        self.writer.submit_mark(lambda: self._lineage_commit(rec))
+
+    def _lineage_commit(self, rec: dict) -> None:
+        """The sink-commit ack, on the writer thread: close the lineage
+        record, observe the event ages and, the view having applied the
+        batch before this mark, stamp its ``view_apply``."""
+        rec = self.lineage.committed(rec)
+        for bound, age in rec["age_s"].items():
+            self.telemetry.event_age.labels(bound=bound).observe(age)
+        view = self.writer.view
+        if view is not None and not view.poisoned:
+            self.lineage.view_applied(rec,
+                                      view_seq=self.writer.last_view_seq)
 
     def step_once(self) -> bool:
         """Fold one batch (the prefetched one, else a fresh poll); False
         when the source had nothing (an idle poll, which flushes the
-        parked batches)."""
+        parked batches).  Runs inside the profiler window's batch, and
+        samples device memory at 1 Hz."""
+        try:
+            with self.tracer.batch(self.epoch):
+                return self._step_once_inner()
+        finally:
+            self.runtimeinfo.memory.sample(min_interval_s=1.0)
+
+    def _step_once_inner(self) -> bool:
         t0 = time.monotonic()
         entry = (self._prefetched.popleft() if self._prefetched
                  else self._next_batch())
@@ -930,6 +1126,10 @@ class MicroBatchRuntime:
         if self._host_snap is not None:
             prekeys = {res: (feed[f"hi{res}"], feed[f"lo{res}"])
                        for res in self.multi._uniq_res}
+        lin = entry.lineage
+        if lin is not None:
+            # the batch leaves the prefetch queue and enters the fold
+            self.lineage.dispatched(lin, self.epoch)
         wait0 = step._read_flags.wait_s
         packed = self.multi.step_packed_all(
             feed["lat"], feed["lng"], feed["speed"], feed["ts"],
@@ -938,6 +1138,9 @@ class MicroBatchRuntime:
         if events is not None:
             events[1].record()
         self._ring.append(packed, self.epoch)
+        if lin is not None:
+            self.lineage.ring_entered(lin)
+            self._lineage_open[self.epoch] = lin
         self._carried_last = entry.carried
         if not entry.carried:
             # offsets advance only once every row of the poll is
@@ -956,15 +1159,16 @@ class MicroBatchRuntime:
                 self._last_flush_cutoff = (
                     bm - self.cfg.watermark_minutes * 60)
             self.max_event_ts = bm
+            self._g_watermark.set(time.time() - bm)
         t_pos = time.monotonic()
         if self.positions_enabled:
             prows = self._fold_positions(entry.cols)
             if prows is not None:
                 self.writer.submit_positions_packed(prows)
-                self.counters["positions_emitted"] += len(prows.ts_ms)
+                self.telemetry.count("positions_emitted", len(prows.ts_ms))
         self.epoch += 1
-        self.counters["batches"] += 1
-        self.counters["events_polled"] += entry.n
+        self._n_batches += 1
+        self._n_polled += entry.n
         t4 = time.monotonic()
         # refill the prefetch queue AFTER the dispatch: the next batch's
         # poll, pad and copy run while the device folds this one
@@ -975,6 +1179,8 @@ class MicroBatchRuntime:
                 break
             self._prefetched.append(nxt)
         t5 = time.monotonic()
+        self._observe_batch(entry, t5 - t0, pull_s + sink_s, infer_s,
+                            t_pos - t2, t4 - t_pos, t5 - t4)
         if self.checkpoint_every and self.epoch % self.checkpoint_every == 0:
             # a cadence hit while carrying holds the commit until the
             # first carry-free step: a fixed record-to-batch size ratio
@@ -1005,6 +1211,46 @@ class MicroBatchRuntime:
         self._publish_snapshot()
         return True
 
+    def _observe_batch(self, entry: _FeedBatch, latency_s: float,
+                       pull_s: float, infer_s: float | None,
+                       device_s: float, sink_s: float,
+                       prefetch_s: float) -> None:
+        """The batch's spans under the reference's names and boundaries
+        into the registry, and its trace record.  ``latency_s`` runs from
+        the step's start to the end of its prefetch (the checkpoint after
+        it is not in the batch, as in the reference); ``device`` is the
+        dispatch with the host watermark advance, ``sink_submit`` the
+        positions fold and its hand-off; ``pull`` the whole flush before
+        the fold."""
+        es = entry.spans
+        spans = {
+            "poll": es["poll"],
+            "build": es["pad"] + es["transfer"],
+            "pad": es["pad"],
+            "transfer": es["transfer"],
+            "pull": pull_s,
+            "snap": es.get("snap", 0.0),
+            "device": device_s,
+            "sink_submit": sink_s,
+            "prefetch": prefetch_s,
+        }
+        for k in ("fetch", "decode", "wait"):
+            if k in es:
+                spans[f"poll_{k}"] = es[k]
+        if infer_s is not None:
+            spans["infer"] = infer_s
+        self.telemetry.observe_batch(latency_s, spans)
+        # late and overflow counts arrive up to K batches behind (at the
+        # flush), so the record carries the change since the last one
+        c = self.telemetry.counters
+        cum = (c["events_late"], c["state_overflow_groups"],
+               c["events_bucket_dropped"])
+        last, self._trace_cum = self._trace_cum, cum
+        self.tracering.record(
+            self.epoch - 1, latency_s, spans, n_events=entry.n,
+            n_late=cum[0] - last[0], overflow_groups=cum[1] - last[1],
+            late_dropped=cum[2] - last[2])
+
     def _account(self, pair, packed_pair: np.ndarray, epoch: int) -> int:
         """Sink one pair's emit rows and book its stats (overflow policy,
         occupancy and minting peaks); returns its batch_max_ts."""
@@ -1026,11 +1272,17 @@ class MicroBatchRuntime:
             self.writer.submit_tiles(docs)
         elif n_docs:
             self.writer.submit_tiles_packed(body, self._pack_meta[pair])
-        self.counters["tiles_emitted"] += n_docs
+        self.telemetry.count("tiles_emitted", n_docs)
         if pair == self._primary:
-            self.counters["events_valid"] += stats.n_valid
-            self.counters["events_late"] += stats.n_late
+            self.telemetry.count("events_valid", stats.n_valid)
+            # watermark-late, with the future-window poison the fold
+            # drops under the same mask: a tagged drop
+            self.telemetry.drop("late", stats.n_late)
+        else:
+            self.telemetry.count(
+                f"events_late_r{pair[0]}m{pair[1] // 60}", stats.n_late)
         self._n_active_peak = max(self._n_active_peak, stats.n_active)
+        self._g_active.set(self._n_active_peak)
         # per-batch group minting (grow_margin=observed): the n_active
         # delta undercounts when evictions freed rows in the same batch,
         # so add them back; a pair's first observation only seeds the
@@ -1045,8 +1297,8 @@ class MicroBatchRuntime:
         if ovf:
             # data loss is never silent: every overflowing batch counts;
             # the log is rate-limited to once a minute
-            self.counters["state_overflow"] += ovf
-            self.counters["state_overflow_last_epoch"] = epoch
+            self.telemetry.count("state_overflow_groups", ovf)
+            self.telemetry.counters["state_overflow_last_epoch"] = epoch
             now = time.monotonic()
             if now - self._overflow_logged_at >= 60.0:
                 self._overflow_logged_at = now
@@ -1054,7 +1306,7 @@ class MicroBatchRuntime:
                     "STATE OVERFLOW: %d distinct (cell,window) groups "
                     "dropped this batch (%d total); raise "
                     "STATE_CAPACITY_LOG2 (currently 2^%d rows)", ovf,
-                    self.counters["state_overflow"],
+                    self.telemetry.counters["state_overflow_groups"],
                     self.multi.capacity_per_shard.bit_length() - 1)
             if self.cfg.on_overflow == "fail":
                 # no exit commit: offsets and state stay at the last good
@@ -1073,7 +1325,35 @@ class MicroBatchRuntime:
         checkpoint and wait for it, then close the source and the writer
         (which drains it).  After a fail-mode overflow or a poisoned
         writer, nothing is folded or committed: the last good commit
-        stays, and its tail replays; a poisoned writer's close raises."""
+        stays, and its tail replays; a poisoned writer's close raises.
+
+        First the watchdog stops, and the flight recorder dumps (before the
+        drain, so the ring and prefetch depths still describe the
+        incident) when the close is abnormal: a fail-mode overflow, a
+        poisoned writer, or an exception unwinding through ``run()``
+        (SIGTERM included, as ``stream/__main__.py`` turns it into
+        ``SystemExit``); a clean close dumps only with
+        ``HEATMAP_FLIGHTREC_ALWAYS=1``, else disarms it.  Then the
+        profiler window is written; the trace export closes last."""
+        import sys
+
+        if self.slo_watchdog is not None:
+            self.slo_watchdog.stop()
+        exc = sys.exc_info()[1]
+        if isinstance(exc, SystemExit) and not exc.code:
+            exc = None  # sys.exit(0) mid-run is a clean shutdown
+        if self.flightrec is not None:
+            if self._fatal or self.writer.poisoned or exc is not None:
+                why = ("fatal state overflow" if self._fatal
+                       else "poisoned sink" if self.writer.poisoned
+                       else f"abnormal exit: {type(exc).__name__}: {exc}")
+                self.flightrec.dump(why)
+            elif os.environ.get("HEATMAP_FLIGHTREC_ALWAYS") == "1":
+                self.flightrec.dump("clean close "
+                                    "(HEATMAP_FLIGHTREC_ALWAYS=1)")
+            else:
+                self.flightrec.disarm()
+        self.tracer.stop()  # write a partial profiler window, if any
         self._closing = True
         failed = lambda: self._fatal or self.writer.poisoned
         try:
@@ -1090,6 +1370,7 @@ class MicroBatchRuntime:
                 if not failed():
                     self._checkpoint()
                 self._ckpt_join(raise_errors=not failed())
+                self._publish_snapshot()  # the exit commit counted
         finally:
             try:
                 self.source.close()
@@ -1108,6 +1389,7 @@ class MicroBatchRuntime:
                     # log, and the compactor's closing step drains it
                     if self.hist_compactor is not None:
                         self.hist_compactor.close()
+                    self.tracering.close()  # the JSONL trace export
 
     def run(self, max_batches: int | None = None) -> None:
         """Drive the loop until the source is exhausted (or max_batches),

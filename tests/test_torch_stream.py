@@ -472,6 +472,11 @@ def test_entry_point_default_pipeline_matches_jax(monkeypatch):
     assert list(mine.choices) == list(ref.choices)
 
 
+# the observability knobs still refused name their exact slice
+_KNOB_ITEMS = {"HEATMAP_TSDB": "A6b,", "HEATMAP_AUDIT": "A6c,",
+               "HEATMAP_DELIVERY": "A6c,"}
+
+
 @pytest.mark.parametrize("knob,on,off", [
     ("HEATMAP_SHARDS", "2", "1"),
     ("HEATMAP_SHARD_INDEX", "1", "0"),
@@ -480,9 +485,6 @@ def test_entry_point_default_pipeline_matches_jax(monkeypatch):
     ("HEATMAP_QUALITY", "1", ""),
     ("HEATMAP_TSDB", "1", "0"),
     ("HEATMAP_DELIVERY", " On", "no"),
-    ("HEATMAP_TRACE_JSONL", "trace.jsonl", ""),
-    ("HEATMAP_FLIGHTREC_DIR", "flightrec", ""),
-    ("HEATMAP_PROFILE_DIR", "trace", ""),
     ("HEATMAP_SUPERVISOR_CHANNEL", "channel.json", ""),
     ("HEATMAP_HEARTBEAT_FILE", "heartbeat", ""),
     ("HEATMAP_COORDINATOR", "127.0.0.1:1234", ""),
@@ -495,7 +497,7 @@ def test_unported_knob_raises_by_name(knob, on, off):
     both packages."""
     with pytest.raises(NotImplementedError, match=knob) as e:
         load_config({knob: on})
-    assert "ROADMAP A" in str(e.value)
+    assert f"ROADMAP {_KNOB_ITEMS.get(knob, 'A')}" in str(e.value)
     load_config({knob: off})
     jax_load_config({knob: off})
 
