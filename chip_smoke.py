@@ -4,6 +4,7 @@
     python3 chip_smoke.py           # every phase below
     python3 chip_smoke.py obs 3     # the build, then the obs phase's runs
                                     # in 3 pairs (off, on / on, off / ...)
+    python3 chip_smoke.py quality 3 # the same for the quality phase's runs
 
 Phases, one JSON line each:
 
@@ -210,6 +211,28 @@ Phases, one JSON line each:
                 batch of each run (and outside the profiler window), the
                 reference spans' p50s from /metrics.json, the summed
                 compile count, /healthz's checks.
+15. quality     the telemetry time machine and the inference quality
+                observatory (ROADMAP A6b, A5): synthetic_backfill at the
+                serve phase's widths and t0 with HEATMAP_REDUCERS=
+                count,kalman, 16 batches of 2^19, the writer's app
+                attached and a client asking /api/tiles/forecast at h=1,
+                2 and 4 every ~200 ms, twice back to back: the knobs off,
+                then on (HEATMAP_TSDB=1 with its directory, a 1 s scrape
+                and a 3 s flush, HEATMAP_QUALITY=1 with
+                HEATMAP_QUALITY_MATURE_S=0, HEATMAP_SLO_BUDGET_WINDOW_S=
+                7200 so that the fast burn rule's windows are 2 s and
+                10 s, and the flight recorder).  Checks: one snap and one
+                kalman launch a batch; the two runs' tile and position
+                docs equal (observe-only); registered == scored +
+                expired_unscorable + pending with scored >= 1; blocks
+                under the member's directory read back by TsdbReader;
+                /debug/timeline holding the healthz transition to
+                degraded and a fired freshness_p50 alert.  Printed:
+                events/s and p50 batch of each run and their ratio, the
+                scrape's seconds (p50, max), the series and points held,
+                the blocks' bytes, the scorecards and the latest skill
+                per (grid, h), the NIS coverage, the timeline's entries
+                by kind and the flight record's slo-burn reason.
 
 Then one line listing every kernel (launches on the main path and in
 every later phase, agreement with its plain version, its time, the plain
@@ -3187,16 +3210,293 @@ def obs_pairs(torch, snap_kernel, dev, n_pairs: int) -> None:
     emit(out)
 
 
+# the quality phase: the depth of the infer phase; the budget window that
+# scales default_rules' fast pair to 2 s / 10 s at a 1 s scrape
+QUALITY_BATCHES = INFER_BATCHES
+QUALITY_HORIZONS = (1, 2, 4)
+QUALITY_SCRAPE_S = 1.0
+QUALITY_FLUSH_S = 3.0
+QUALITY_BUDGET_WINDOW_S = 7200.0
+
+
+class ForecastClient:
+    """A client asking /api/tiles/forecast at each of QUALITY_HORIZONS
+    every ~200 ms, as a dashboard polling the forecast would."""
+
+    def __init__(self, port):
+        import threading
+
+        self.port = port
+        self.n = 0
+        self.ms: list = []
+        self.error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="forecast-client")
+
+    def _run(self):
+        try:
+            while not self._stop.is_set():
+                for h in QUALITY_HORIZONS:
+                    status, _, body, ms = http_get(
+                        self.port, f"/api/tiles/forecast?h={h}")
+                    if status != 200:
+                        raise AssertionError(f"forecast h={h}: {status} "
+                                             f"{body[:200]}")
+                    self.n += 1
+                    self.ms.append(ms)
+                self._stop.wait(0.2)
+        except BaseException as e:  # surfaced by stop()
+            self.error = e
+
+    def start(self):
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=300)
+        if self._thread.is_alive():
+            raise AssertionError("the forecast client did not stop")
+        if self.error is not None:
+            raise AssertionError("the forecast client failed") from self.error
+
+
+def quality_run(torch, snap_kernel, kalman, ckpt_dir, dev, on: bool,
+                t0: int):
+    """synthetic_backfill with the kalman reducer for QUALITY_BATCHES
+    batches from ``t0``, the writer's app attached and a ForecastClient on
+    it; ``on`` sets the telemetry history, the SLO engine, the quality
+    observatory and the flight recorder.  The on run folds its first batch
+    only once the recorder has taken a verdict, so the timeline starts
+    from the run's ok state.  Returns the run's numbers and docs."""
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.obs.tsdb import TsdbReader
+    from heatmap_tpu_torch.serve import start_background, stop_background
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+    from heatmap_tpu_torch.stream.source import SyntheticSource
+
+    tmp = f"{ckpt_dir}/quality"
+    os.makedirs(tmp)
+    p = get_pipeline("synthetic_backfill")
+    cfg = dataclasses.replace(p.config, checkpoint_dir=f"{ckpt_dir}/ck",
+                              serve_port=0, reducers=("count", "kalman"))
+    if on:
+        cfg = dataclasses.replace(
+            cfg, tsdb=True, tsdb_dir=f"{tmp}/tsdb",
+            tsdb_scrape_s=QUALITY_SCRAPE_S, tsdb_flush_s=QUALITY_FLUSH_S,
+            slo_budget_window_s=QUALITY_BUDGET_WINDOW_S, quality=True,
+            quality_mature_s=0.0, flightrec_dir=f"{tmp}/fr")
+    n_events = QUALITY_BATCHES * cfg.batch_size
+    source = dict(SERVE_SOURCE, n_events=n_events)
+    store = MemoryStore()
+    rt = MicroBatchRuntime(cfg, SyntheticSource(t0=t0, **source), store,
+                           device=dev)
+    scrape_s: list = []
+    if on:
+        # every scrape's own seconds, beside the histogram it feeds
+        fam = rt.tsdb._m_scrape
+        observe = fam.observe
+        fam.observe = lambda v: (scrape_s.append(v), observe(v))
+        deadline = time.monotonic() + 30
+        while not rt.tsdb._hz:
+            if time.monotonic() > deadline:
+                raise AssertionError("the recorder took no verdict in 30 s")
+            time.sleep(0.05)
+    httpd, thread, port = start_background(store, cfg, rt)
+    client = ForecastClient(port)
+    try:
+        client.start()
+        kalman.kalman_rounds.launches = 0
+        snap_kernel.latlng_to_cell_kernel.launches = 0
+        t_start = time.monotonic()
+        try:
+            rt.run()
+        finally:
+            client.stop()
+        wall = time.monotonic() - t_start
+        launches = snap_kernel.latlng_to_cell_kernel.launches
+        k_launches = kalman.kalman_rounds.launches
+        m = rt.metrics
+        n = m["batches"]
+        want = n if dev.type == "cuda" else 0
+        if (launches != want or k_launches != want
+                or n != QUALITY_BATCHES or m["events_valid"] != n_events):
+            raise AssertionError(
+                f"quality run (on {on}): {launches} snap and {k_launches} "
+                f"kalman launches in {n} batches, {m['events_valid']} "
+                f"events")
+        out = {"on": on, "events": m["events_valid"], "batches": n,
+               "wall_s": wall, "events_per_s": m["events_valid"] / wall,
+               "p50_batch_ms": m["p50_batch_ms"],
+               "p50_infer_ms": m["p50_span_ms"]["infer"],
+               "snap_launches": launches, "kalman_launches": k_launches,
+               "forecasts": client.n,
+               "forecast_p50_ms": float(np.median(client.ms))}
+        if on:
+            out.update(quality_checks(rt, port, cfg, scrape_s, tmp,
+                                      TsdbReader))
+        else:
+            for path in ("/debug/quality", "/debug/timeline",
+                         "/fleet/timeline"):
+                status = http_get(port, path)[0]
+                if status != 503:
+                    raise AssertionError(f"{path} answered {status} with "
+                                         f"the knobs off")
+    finally:
+        stop_background(httpd, thread)
+    docs = (dict(store._tiles), dict(store._positions))
+    del rt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, docs
+
+
+def quality_checks(rt, port, cfg, scrape_s, tmp, TsdbReader):
+    """The on run's gates and numbers: the scorecard identity, the blocks
+    read back, the timeline's degraded transition and freshness alert,
+    the flight record's slo-burn reason."""
+    import glob
+    from collections import Counter
+
+    q = json.loads(http_get(port, "/debug/quality")[2])
+    ident = rt.quality.identity()
+    if not ident["ok"] or ident["scored"] < 1 or q["scorecards"] != ident:
+        raise AssertionError(f"scorecards: {ident}, /debug/quality "
+                             f"{q['scorecards']}")
+    tag = rt.tsdb.tag
+    reader = TsdbReader(cfg.tsdb_dir)
+    blocks = reader.blocks(tag)
+    held = reader.series(tag, names=["heatmap_tsdb_scrapes_total"])
+    if reader.members() != [tag] or not blocks or not held:
+        raise AssertionError(f"tsdb: members {reader.members()}, "
+                             f"{len(blocks)} blocks, {list(held)}")
+    tl = json.loads(http_get(port, "/debug/timeline")[2])
+    entries = tl["entries"]
+    degraded = [e for e in entries if e["kind"] == "healthz"
+                and e["to"] == "degraded"]
+    fired = [e for e in entries if e["kind"] == "slo_alert"
+             and e["slo"] == "freshness_p50"]
+    if tl["member"] != tag or not degraded or not fired:
+        raise AssertionError(f"/debug/timeline of {tl['member']}: "
+                             f"{Counter(e['kind'] for e in entries)}")
+    burns = []
+    for name in sorted(os.listdir(f"{tmp}/fr")):
+        with open(f"{tmp}/fr/{name}") as fh:
+            reason = json.load(fh)["reason"]
+        if reason.startswith("slo-burn:"):
+            burns.append(reason)
+    if "slo-burn:freshness_p50:fast" not in burns:
+        raise AssertionError(f"flight records' slo-burn reasons: {burns}")
+    with rt.tsdb._lock:
+        series = len(rt.tsdb._rings)
+        points = sum(len(r) for r in rt.tsdb._rings.values())
+    blk = rt.quality.member_block()
+    hist = rt.registry._families["heatmap_tsdb_scrape_seconds"]
+    return {
+        "tsdb_scrapes": len(scrape_s),
+        "tsdb_scrape_s": {"p50": float(np.median(scrape_s)),
+                          "max": max(scrape_s),
+                          "histogram_p50": hist.quantile(0.5)},
+        "tsdb_series": series, "tsdb_points": points,
+        "tsdb_blocks": len(blocks),
+        "tsdb_block_files_bytes": dir_bytes(os.path.join(
+            glob.escape(cfg.tsdb_dir), glob.escape(tag), "block-*.json")),
+        "scorecards": ident, "skill": blk["skill"], "nis": blk["nis"],
+        "anomaly_rate": blk["anomaly_rate"],
+        "timeline_kinds": dict(Counter(e["kind"] for e in entries)),
+        "first_degraded": {k: degraded[0][k] for k in ("t", "failing")},
+        "freshness_alert": {k: fired[0][k] for k in (
+            "t", "rule", "burn_short", "burn_long", "value")},
+        "slo_burn_reasons": burns,
+        "healthz_failing": sorted(
+            k for k, c in json.loads(http_get(port, "/healthz")[2])[
+                "checks"].items() if not c.get("ok", True)),
+    }
+
+
+def phase_quality(torch, snap_kernel, ckpt_root, dev):
+    """synthetic_backfill with the kalman reducer, the time machine and the
+    observatory off, then on, back to back on the same card; the two runs'
+    docs equal; events/s of each and the on/off ratio, the recorder's and
+    the observatory's numbers from the on run."""
+    from heatmap_tpu_torch.infer import kalman
+
+    t0 = (int(time.time()) // 300 - 1) * 300
+    runs, docs = [], []
+    for i, on in enumerate((False, True)):
+        r, d = quality_run(torch, snap_kernel, kalman,
+                           f"{ckpt_root}/quality{i}", dev, on, t0)
+        runs.append(r)
+        docs.append(d)
+    if docs[1] != docs[0]:
+        raise AssertionError("the quality phase's on run's docs differ "
+                             "from the off run's")
+    out = {"phase": "quality",
+           "source": dict(SERVE_SOURCE, t0="now-aligned",
+                          n_events=runs[0]["events"]),
+           "budget_window_s": QUALITY_BUDGET_WINDOW_S,
+           "scrape_s": QUALITY_SCRAPE_S, "flush_s": QUALITY_FLUSH_S,
+           "runs": runs, "docs_equal": True,
+           "events_per_s_on_over_off": (runs[1]["events_per_s"]
+                                        / runs[0]["events_per_s"])}
+    emit(out)
+    return out
+
+
+def quality_pairs(torch, snap_kernel, dev, n_pairs: int) -> None:
+    """The quality phase's runs in ``n_pairs`` pairs after an uncounted
+    warm run, each pair's order the other's reverse, as ``obs_pairs``
+    does: every run's line, then the medians of each side."""
+    from heatmap_tpu_torch.infer import kalman
+
+    t0 = (int(time.time()) // 300 - 1) * 300
+    root = tempfile.mkdtemp(prefix="chip_smoke-quality-")
+    runs = []
+    keys = ("on", "events_per_s", "p50_batch_ms", "p50_infer_ms",
+            "forecasts", "forecast_p50_ms")
+    try:
+        quality_run(torch, snap_kernel, kalman, f"{root}/warm", dev, False,
+                    t0)
+        for i in range(2 * n_pairs):
+            on = (i % 2 == 0) == (i // 2 % 2 == 1)
+            r, _ = quality_run(torch, snap_kernel, kalman, f"{root}/r{i}",
+                               dev, on, t0)
+            line = {"quality_pair_run": i, **{k: r[k] for k in keys}}
+            if on:
+                line.update({k: r[k] for k in (
+                    "tsdb_scrapes", "tsdb_scrape_s", "tsdb_series",
+                    "scorecards")})
+            emit(line)
+            runs.append(r)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"quality_pairs": n_pairs}
+    for label, on in (("off", False), ("on", True)):
+        mine = [r for r in runs if r["on"] == on]
+        for k in ("events_per_s", "p50_batch_ms", "p50_infer_ms"):
+            vals = sorted(r[k] for r in mine)
+            out[f"{k}_{label}"] = {"median": float(np.median(vals)),
+                                   "min": vals[0], "max": vals[-1]}
+    out["events_per_s_on_over_off_medians"] = (
+        out["events_per_s_on"]["median"] / out["events_per_s_off"]["median"])
+    emit(out)
+
+
+PAIRS = {"obs": obs_pairs, "quality": quality_pairs}
+
+
 def main(argv=()) -> int:
-    """The whole smoke run; ``obs N`` runs the build and ``obs_pairs``
-    with N pairs instead (a measurement of the obs phase's knobs)."""
+    """The whole smoke run; ``obs N`` / ``quality N`` run the build and
+    ``obs_pairs`` / ``quality_pairs`` with N pairs instead (a measurement
+    of that phase's knobs)."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if argv and (len(argv) != 2 or argv[0] != "obs"):
-        print("usage: chip_smoke.py [obs N_PAIRS]", file=sys.stderr)
+    if argv and (len(argv) != 2 or argv[0] not in PAIRS):
+        print("usage: chip_smoke.py [obs|quality N_PAIRS]", file=sys.stderr)
         return 2
     from heatmap_tpu_torch import _build
     from heatmap_tpu_torch.hexgrid import snap_kernel
@@ -3207,7 +3507,7 @@ def main(argv=()) -> int:
     torch.cuda.set_device(dev)
     phase_build(_build)
     if argv:
-        obs_pairs(torch, snap_kernel, dev, int(argv[1]))
+        PAIRS[argv[0]](torch, snap_kernel, dev, int(argv[1]))
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -3259,6 +3559,7 @@ def main(argv=()) -> int:
         serve = phase_serve(torch, snap_kernel, ckpt_root, dev)
         repl = phase_repl(torch, snap_kernel, ckpt_root, dev, serve)
         obs = phase_obs(torch, snap_kernel, ckpt_root, dev)
+        quality = phase_quality(torch, snap_kernel, ckpt_root, dev)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     # the rounds kernel's numbers at the main path's shape: the round set
@@ -3287,6 +3588,8 @@ def main(argv=()) -> int:
         "launches_serve_phase": [r["snap_launches"] for r in serve["runs"]],
         "launches_repl_phase": repl["snap_launches"],
         "launches_obs_phase": [r["snap_launches"] for r in obs["runs"]],
+        "launches_quality_phase": [r["snap_launches"]
+                                   for r in quality["runs"]],
         "obs_profile_window_kernel_events": [
             r["profile"]["snap_kernel_events"] for r in obs["runs"]
             if r["on"]],
@@ -3304,6 +3607,8 @@ def main(argv=()) -> int:
         "source": "heatmap_tpu_torch/infer/csrc/kalman_rounds.cu",
         "replaces": "heatmap_tpu/infer/kalman.py:72",
         "launches": infer["kalman_launches"],
+        "launches_quality_phase": [r["kalman_launches"]
+                                   for r in quality["runs"]],
         "max_abs_err": main_rounds["max_abs_err"],
         "identical_share": min(f["identical"]
                                for f in main_rounds["fields"].values()),

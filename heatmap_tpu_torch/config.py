@@ -77,9 +77,6 @@ UNPORTED_KNOBS = {
     "HEATMAP_SHARD_INDEX": (lambda v: int(v) != 0, "A7, the process fleet"),
     "HEATMAP_GOVERN": (_flag_on, "A7, the governor"),
     "HEATMAP_AUDIT": (_flag_on, "A6c, integrity and delivery"),
-    "HEATMAP_QUALITY": (_flag_on, "A5, the inference quality "
-                                  "observatory, after A6b"),
-    "HEATMAP_TSDB": (_flag_on, "A6b, the telemetry time machine"),
     # the feed's publish stamps (obs/delivery.py: on for 1|true|yes|on)
     "HEATMAP_DELIVERY": (_delivery_on, "A6c, integrity and delivery"),
     # the supervisor's member channel (obs/xproc.py) and liveness beacon
@@ -295,6 +292,57 @@ class Config:
                                        # buffered per query for resume
     cq_max_cells: int = 4096           # HEATMAP_CQ_MAX_CELLS: compiled
                                        # cell-set budget per query
+    tsdb: bool = False                 # HEATMAP_TSDB: the telemetry time
+                                       # machine (obs/tsdb.py): a sampler
+                                       # thread records the runtime's
+                                       # /metrics exposition and /healthz
+                                       # verdict into history rings,
+                                       # persisted as blocks under
+                                       # HEATMAP_TSDB_DIR, and the SLO
+                                       # burn-rate engine (obs/slo.py)
+                                       # evaluates on each scrape.  0
+                                       # builds nothing
+    tsdb_dir: str = ""                 # HEATMAP_TSDB_DIR: per-member
+                                       # history directory; empty with
+                                       # tsdb=1: rings and the SLO engine
+                                       # run, nothing persists and the
+                                       # timeline routes 503
+    tsdb_scrape_s: float = 5.0         # HEATMAP_TSDB_SCRAPE_S: scrape
+                                       # cadence, also the SLO engine's
+                                       # tick and budget-spend unit
+    tsdb_retain_s: float = 259200.0    # HEATMAP_TSDB_RETAIN_S: retention
+                                       # (3 days)
+    tsdb_hot_s: float = 3600.0         # HEATMAP_TSDB_HOT_S: raw-resolution
+                                       # span; older blocks merge into a
+                                       # downsampled tier
+    tsdb_flush_s: float = 60.0         # HEATMAP_TSDB_FLUSH_S: block
+                                       # persistence cadence (an SLO alert
+                                       # flushes at once)
+    slo_budget_frac: float = 0.01      # HEATMAP_SLO_BUDGET_FRAC: share of
+                                       # scrape ticks allowed to breach an
+                                       # SLO inside the budget window
+    slo_budget_window_s: float = 86400.0  # HEATMAP_SLO_BUDGET_WINDOW_S:
+                                       # rolling error-budget window; the
+                                       # canonical 30-day burn-rate alert
+                                       # windows scale to it
+    quality: bool = False              # HEATMAP_QUALITY: the inference
+                                       # quality observatory
+                                       # (obs/quality.py), with the kalman
+                                       # reducer: live forecast scoring,
+                                       # calibration ledgers, drift SLOs.
+                                       # 0 builds nothing
+    quality_window_s: float = 600.0    # HEATMAP_QUALITY_WINDOW_S: rolling
+                                       # event-time window of the
+                                       # calibration ledger
+    quality_lookback_s: float = 300.0  # HEATMAP_QUALITY_LOOKBACK_S: span
+                                       # summed around the base and target
+                                       # instants when scoring
+    quality_mature_s: float = 60.0     # HEATMAP_QUALITY_MATURE_S: event-
+                                       # time slack past a scorecard's
+                                       # target before it scores
+    quality_ttl_s: float = 3600.0      # HEATMAP_QUALITY_TTL_S: a matured
+                                       # scorecard unanswerable this long
+                                       # expires as expired_unscorable
 
     def pair_grid(self, res: int, wmin: int) -> str:
         """Sink grid label for a (res, window) pair: "h3r{res}" for the
@@ -401,6 +449,28 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
                               Config.hist_compact_s),
         hist_backfill=e.get("HEATMAP_HIST_BACKFILL", "1")
         not in ("0", "false", ""),
+        tsdb=e.get("HEATMAP_TSDB", "0") not in ("0", "false", ""),
+        tsdb_dir=e.get("HEATMAP_TSDB_DIR", Config.tsdb_dir),
+        tsdb_scrape_s=_float(e, "HEATMAP_TSDB_SCRAPE_S",
+                             Config.tsdb_scrape_s),
+        tsdb_retain_s=_float(e, "HEATMAP_TSDB_RETAIN_S",
+                             Config.tsdb_retain_s),
+        tsdb_hot_s=_float(e, "HEATMAP_TSDB_HOT_S", Config.tsdb_hot_s),
+        tsdb_flush_s=_float(e, "HEATMAP_TSDB_FLUSH_S",
+                            Config.tsdb_flush_s),
+        slo_budget_frac=_float(e, "HEATMAP_SLO_BUDGET_FRAC",
+                               Config.slo_budget_frac),
+        slo_budget_window_s=_float(e, "HEATMAP_SLO_BUDGET_WINDOW_S",
+                                   Config.slo_budget_window_s),
+        quality=e.get("HEATMAP_QUALITY", "0") not in ("0", "false", ""),
+        quality_window_s=_float(e, "HEATMAP_QUALITY_WINDOW_S",
+                                Config.quality_window_s),
+        quality_lookback_s=_float(e, "HEATMAP_QUALITY_LOOKBACK_S",
+                                  Config.quality_lookback_s),
+        quality_mature_s=_float(e, "HEATMAP_QUALITY_MATURE_S",
+                                Config.quality_mature_s),
+        quality_ttl_s=_float(e, "HEATMAP_QUALITY_TTL_S",
+                             Config.quality_ttl_s),
         cq=e.get("HEATMAP_CQ", "1") not in ("0", "false", ""),
         cq_max_queries=_int(e, "HEATMAP_CQ_MAX_QUERIES",
                             Config.cq_max_queries),
@@ -458,6 +528,23 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         raise ValueError(
             f"HEATMAP_ENTITY_STOP_S must be > 0, "
             f"got {cfg.entity_stop_s}")
+    if cfg.quality_window_s <= 0:
+        raise ValueError(
+            f"HEATMAP_QUALITY_WINDOW_S must be > 0, "
+            f"got {cfg.quality_window_s}")
+    if cfg.quality_lookback_s <= 0:
+        raise ValueError(
+            f"HEATMAP_QUALITY_LOOKBACK_S must be > 0, "
+            f"got {cfg.quality_lookback_s}")
+    if cfg.quality_mature_s < 0:
+        raise ValueError(
+            f"HEATMAP_QUALITY_MATURE_S must be >= 0, "
+            f"got {cfg.quality_mature_s}")
+    if cfg.quality_ttl_s < cfg.quality_mature_s:
+        raise ValueError(
+            f"HEATMAP_QUALITY_TTL_S ({cfg.quality_ttl_s}) below "
+            f"HEATMAP_QUALITY_MATURE_S ({cfg.quality_mature_s}) — a "
+            f"scorecard cannot expire before it matures")
     if cfg.delta_log < 1:
         raise ValueError(
             f"HEATMAP_DELTA_LOG must be >= 1, got {cfg.delta_log}")
@@ -540,4 +627,25 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         raise ValueError(
             f"HEATMAP_CQ_MAX_CELLS must be >= 1, "
             f"got {cfg.cq_max_cells}")
+    if cfg.tsdb_scrape_s <= 0:
+        raise ValueError(
+            f"HEATMAP_TSDB_SCRAPE_S must be > 0, "
+            f"got {cfg.tsdb_scrape_s}")
+    if cfg.tsdb_flush_s < 0:
+        raise ValueError(
+            f"HEATMAP_TSDB_FLUSH_S must be >= 0, "
+            f"got {cfg.tsdb_flush_s}")
+    if cfg.tsdb_retain_s < cfg.tsdb_hot_s:
+        raise ValueError(
+            f"HEATMAP_TSDB_RETAIN_S ({cfg.tsdb_retain_s}) below "
+            f"HEATMAP_TSDB_HOT_S ({cfg.tsdb_hot_s}) — retention "
+            f"cannot be shorter than the raw tier it feeds")
+    if not 0 < cfg.slo_budget_frac <= 1:
+        raise ValueError(
+            f"HEATMAP_SLO_BUDGET_FRAC must be in (0, 1], "
+            f"got {cfg.slo_budget_frac}")
+    if cfg.slo_budget_window_s <= 0:
+        raise ValueError(
+            f"HEATMAP_SLO_BUDGET_WINDOW_S must be > 0, "
+            f"got {cfg.slo_budget_window_s}")
     return cfg

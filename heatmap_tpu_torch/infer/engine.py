@@ -39,6 +39,14 @@ through ``metrics.count``, and the cross-shard re-seeds through
 ``metrics.drop("handoff", audit=False)``; without one it keeps a
 ``Metrics`` of its own (``counters`` reads either).
 
+With ``quality`` set (the runtime attaches ``obs.quality``'s observatory
+under ``HEATMAP_QUALITY=1``) each fold ends by feeding it: the update
+rounds, those inside the chi-square 95% gate and the innovation sums, read
+off the rounds' host planes (``nis``, ``inn``, ``tele`` and the round
+mask; the one device-to-host copy of the scan), the anomaly counts and the
+table's pressure; then the scorecards mature against the event-time
+watermark.
+
 Axis convention: state is ``[pn, pe, vn, ve]`` (north, east) in meters
 about each entity's f64 reference; serving maps east->``vxKmh``,
 north->``vyKmh``.
@@ -93,6 +101,9 @@ class InferenceEngine:
                          if self.device.type == "cuda" else None)
         self.metrics = metrics if metrics is not None else Metrics()
         self.clock = clock or time.time
+        # the quality observatory (obs.quality), attached by the runtime
+        # under HEATMAP_QUALITY=1; None leaves the fold as it was
+        self.quality = None
         self.capacity = int(cfg.entity_capacity)
         self.ttl_s = float(cfg.entity_ttl_s)
         self.stop_s = float(cfg.entity_stop_s)
@@ -314,7 +325,7 @@ class InferenceEngine:
         tr_[rk, gid] = st
         row_of = np.full((k, m), -1, np.int64)
         row_of[rk, gid] = np.arange(n)
-        x1, p1, nis, tele, spd, _ = filter_rounds(
+        x1, p1, nis, tele, spd, inn = filter_rounds(
             self.table.x[slots], self.table.P[slots], zr, dtr, vr, rsr,
             q=_Q_ACCEL, r_m=_R_M, gate=_GATE_NIS, p0_pos=_P0_POS,
             p0_vel=_P0_VEL, device=self.device, staging=self._staging)
@@ -403,6 +414,31 @@ class InferenceEngine:
         self.metrics.drop("handoff", n_handoff, audit=False)
         if events:
             self._raise_events(events, slat, slng, st, sv, cols)
+        if self.quality is not None:
+            # calibration feed (observe-only; after all fold state is
+            # final, so a raise cannot corrupt the table), read off the
+            # rounds' host planes: update rounds are valid non-teleport
+            # rounds, the rounds whose NIS the chi-square reference
+            # describes
+            upd_mask = vr & ~tele
+            self.quality.note_fold(
+                t=now_ts,
+                updates=int(upd_mask.sum()),
+                inside=int((upd_mask & (nis <= _DEV_NIS)).sum()),
+                inn_n=float(inn[..., 0][upd_mask].sum()),
+                inn_e=float(inn[..., 1][upd_mask].sum()),
+                anomalies=dict(self._anom_counts),
+                table={
+                    "entities": int(self.table.occupancy),
+                    "capacity": int(self.table.capacity),
+                    "evicted_ttl": int(self.table.n_evicted_ttl),
+                    "evicted_lru": int(self.table.n_evicted_lru),
+                    "reseed_handoff": int(self.table.n_reseed_handoff),
+                    "reseed_teleport": int(self.table.n_reseed_teleport),
+                })
+            # the scorecard lifecycle advances on the event-time high
+            # watermark (deterministic: never the wall clock)
+            self.quality.mature(now_ts)
 
     def _raise_events(self, events, slat, slng, st, sv, cols) -> None:
         rows = np.asarray([e[1] for e in events], np.int64)

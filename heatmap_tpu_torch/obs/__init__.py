@@ -18,11 +18,21 @@ The counterpart of ``heatmap_tpu/obs``, all of it host Python:
 - :mod:`prof` — the sampling stack profiler behind ``/debug/stacks``;
 - :mod:`xproc` — the atomic JSON write, the fleet staleness budget and
   the fleet's environment names;
-- :mod:`audit` — the doc content hash the history tier uses.
+- :mod:`audit` — the doc content hash the history tier uses;
+- :mod:`tsdb` — the telemetry time machine: the member's own exposition
+  and /healthz verdict recorded into rings and retained blocks
+  (``HEATMAP_TSDB``), the reader and the incident timelines;
+- :mod:`slo` — declarative SLOs with error budgets and multi-window
+  burn-rate alerts, evaluated on each tsdb scrape;
+- :mod:`fleet` — the exposition parser and merged-bucket quantile those
+  two read through;
+- :mod:`quality` — the inference quality observatory
+  (``HEATMAP_QUALITY``): live forecast scorecards and the Kalman
+  filter's calibration ledgers.
 
-The telemetry time machine (``tsdb``, ``slo``), the fleet aggregator,
-the delivery lineage, the rest of the integrity observatory and the
-quality observatory are ROADMAP A6b, A7, A6c and A5.
+As in the reference, those last four are imported where they are used,
+only under their knobs.  The fleet aggregator, the delivery lineage and
+the rest of the integrity observatory are ROADMAP A7 and A6c.
 """
 
 from heatmap_tpu_torch.obs.flightrec import FlightRecorder  # noqa: F401

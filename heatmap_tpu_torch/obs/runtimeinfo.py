@@ -193,6 +193,12 @@ class MemoryMonitor:
         self._lock = threading.Lock()
         self._device = (device if device is not None
                         and device.type == "cuda" else None)
+        if self._device is not None and self._device.index is None:
+            # pinned to an index here: a bare "cuda" would mean whatever
+            # device is current on the sampling thread
+            import torch
+
+            self._device = torch.device("cuda", torch.cuda.current_device())
         self._live_bytes_fn = live_bytes_fn
         self._device_peak: dict[str, float] = {}
         self._live_peak = 0.0
@@ -244,9 +250,7 @@ class MemoryMonitor:
         import torch
 
         stats = torch.cuda.memory_stats(self._device)
-        label = str(self._device.index
-                    if self._device.index is not None
-                    else torch.cuda.current_device())
+        label = str(self._device.index)
         in_use = float(stats["allocated_bytes.all.current"])
         peak = float(stats["allocated_bytes.all.peak"])
         limit = float(torch.cuda.get_device_properties(

@@ -47,15 +47,26 @@ replication feed (``HEATMAP_REPL_FEED``):
   or active, ``dir=`` only under ``HEATMAP_PROFILE_DIR`` or the temp
   directory).
 
-Still cut: the delivery lineage, audit, quality and telemetry-history
-surfaces, and the fleet member snapshot a serve worker publishes (they
-need their subsystems and a supervisor channel, ROADMAP A5, A6b, A6c,
-A7).  Their routes answer as the reference does when that subsystem is
-absent (503 with its message: the audit/quality/timeline surfaces, the
-fleet) or, where the reference has no such answer, 501 naming the
-ROADMAP item (``UNPORTED_ROUTES``).  No request path touches the device:
-the view holds host dicts only, the runtime's metrics come from the
-snapshot its step thread publishes at each batch end
+- GET /debug/timeline[?since=] and /fleet/timeline[?since=] (the
+  retrospective incident timeline of this member, and of every member
+  under ``HEATMAP_TSDB_DIR``, rebuilt from the telemetry history's
+  retained blocks; 503 without ``HEATMAP_TSDB=1`` and a directory),
+  /debug/quality (the runtime's quality observatory; 503 without
+  ``HEATMAP_QUALITY=1`` and the kalman reducer).  Under
+  ``HEATMAP_TSDB=1`` a serve-only app runs its own recorder and SLO
+  engine (``app.tsdb``, ``app.slo_engine``), tagged ``HEATMAP_FLEET_TAG``
+  or ``serve<pid>``, stopped by ``app.close()``; the SLO and quality
+  checks join ``/healthz``, and each ``/api/tiles/forecast`` horizon
+  registers a scorecard after its body is built.
+
+Still cut: the delivery lineage and audit surfaces, and the fleet member
+snapshot a serve worker publishes (they need their subsystems and a
+supervisor channel, ROADMAP A6c, A7).  Their routes answer as the
+reference does when that subsystem is absent (503 with its message: the
+audit surface, the fleet) or, where the reference has no such answer, 501
+naming the ROADMAP item (``UNPORTED_ROUTES``).  No request path touches
+the device: the view holds host dicts only, the runtime's metrics come
+from the snapshot its step thread publishes at each batch end
 (``metrics_snapshot``) and from its registry's families.
 
 Unlike the reference, ``serve_port=0`` binds an ephemeral port
@@ -90,13 +101,6 @@ _NOT_PORTED = "not ported to heatmap_tpu_torch yet (ROADMAP {})"
 _UNPORTED = {
     "/debug/audit": (503, "the integrity observatory needs "
                           "HEATMAP_AUDIT=1"),
-    "/debug/quality": (503, "the quality observatory needs "
-                            "HEATMAP_QUALITY=1 and the kalman reducer in "
-                            "the serving process"),
-    "/debug/timeline": (503, "the telemetry time machine needs "
-                             "HEATMAP_TSDB=1 and HEATMAP_TSDB_DIR"),
-    "/fleet/timeline": (503, "the telemetry time machine needs "
-                             "HEATMAP_TSDB=1 and HEATMAP_TSDB_DIR"),
     **{f"/fleet/{name}": (503, "fleet surfaces need a supervisor channel "
                                "(HEATMAP_SUPERVISOR_CHANNEL)")
        for name in ("metrics", "healthz", "freshness", "delivery", "audit",
@@ -506,6 +510,17 @@ def healthz_payload(runtime, extra_checks=None) -> tuple[dict, bool]:
             degraded |= ec_degraded
         except Exception:  # noqa: BLE001 - a probe bug must not 500 /healthz
             log.exception("serve-tier healthz checks failed")
+    # the SLO burn-rate engine (obs.slo, HEATMAP_TSDB=1): a firing alert
+    # degrades as "error budget burning fast"; a bad latest sample without
+    # a tripped rule is a warn ("momentary blip")
+    slo_eng = getattr(runtime, "slo_engine", None)
+    if slo_eng is not None:
+        try:
+            for name, check in slo_eng.healthz_checks().items():
+                checks[name] = check
+                degraded |= not check.get("ok", True)
+        except Exception:  # noqa: BLE001 - never 500 /healthz
+            log.exception("slo engine healthz checks failed")
     if runtime is not None:
         from heatmap_tpu_torch.obs.runtimeinfo import healthz_checks
 
@@ -534,6 +549,19 @@ def healthz_payload(runtime, extra_checks=None) -> tuple[dict, bool]:
             degraded |= not ok
         # the reference's fastpath_pinned warning: the port's runtime
         # pins no fast-path knob down (one device, no mesh or governor)
+
+        quality = getattr(runtime, "quality", None)
+        if quality is not None:
+            # the quality observatory (obs.quality, HEATMAP_QUALITY=1): NIS
+            # coverage outside the band or the worst live skill below the
+            # floor degrades naming (grid, reducer, shard); a broken
+            # scorecard identity degrades with the counts
+            try:
+                qc, q_deg = quality.healthz_checks()
+                checks.update(qc)
+                degraded |= q_deg
+            except Exception:  # noqa: BLE001 - observe-only, never 500
+                log.exception("quality healthz checks failed")
         if runtime.writer.poisoned:
             checks["sink"] = {"value": "poisoned", "ok": False}
             down = True
@@ -1086,10 +1114,49 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                 _slo("HEATMAP_SLO_CQ_LAG_S", 5.0))
             checks.update(cc)
             degraded |= c_degraded
+        if serve_slo is not None and runtime is None:
+            # a serve-only process's burn-rate checks (an attached
+            # runtime's engine is merged inside healthz_payload): a firing
+            # alert degrades, a blip only warns
+            for name, check in serve_slo.healthz_checks().items():
+                checks[name] = check
+                degraded |= not check.get("ok", True)
         return checks, degraded
 
     healthz = functools.partial(healthz_payload, runtime,
                                 extra_checks=_serve_checks)
+
+    # ---- the telemetry time machine (obs.tsdb / obs.slo) ---------------
+    # An attached app rides the runtime's recorder; a serve-only process
+    # under HEATMAP_TSDB=1 runs its own (scraping the text /metrics
+    # serves, tagged HEATMAP_FLEET_TAG or serve<pid>), so it leaves
+    # retained series and SLO state behind too.  The timeline routes need
+    # only the directory: they answer from retained blocks, even for
+    # members that are gone.
+    from heatmap_tpu_torch.obs import tsdb as tsdbmod
+
+    tsdb_on, tsdb_dir = cfg.tsdb, cfg.tsdb_dir
+    serve_tsdb = serve_slo = None
+    if tsdb_on and runtime is None:
+        from heatmap_tpu_torch.obs.slo import SloEngine
+        from heatmap_tpu_torch.obs.xproc import ENV_CHANNEL, ENV_FLEET_TAG
+
+        _tsdb_tag = os.environ.get(ENV_FLEET_TAG) or f"serve{os.getpid()}"
+        serve_tsdb = tsdbmod.TsdbRecorder(
+            lambda: _metrics_text(None, serve_reg), tag=_tsdb_tag,
+            dir_path=tsdb_dir or None,
+            healthz_fn=lambda: healthz()[0], registry=serve_reg,
+            scrape_s=cfg.tsdb_scrape_s, retain_s=cfg.tsdb_retain_s,
+            hot_s=cfg.tsdb_hot_s, flush_s=cfg.tsdb_flush_s)
+        serve_slo = SloEngine(
+            serve_tsdb, registry=serve_reg, tag=_tsdb_tag,
+            budget_frac=cfg.slo_budget_frac,
+            budget_window_s=cfg.slo_budget_window_s,
+            channel_path=os.environ.get(ENV_CHANNEL))
+        serve_tsdb.start()
+    elif runtime is not None:
+        serve_tsdb = getattr(runtime, "tsdb", None)
+        serve_slo = getattr(runtime, "slo_engine", None)
 
     def _tiles_view(grid: str | None):
         """The view to serve tile reads from, refreshed for serve-only
@@ -1950,6 +2017,19 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                 blk = infer_eng.member_block()
                 data = _forecast_body(cells, h_s, res, blk)
                 _account_render(endpoint, data)
+                # the quality observatory (HEATMAP_QUALITY=1): every
+                # served horizon becomes a pending scorecard, AFTER the
+                # body is built and guarded, so registration never
+                # changes the response bytes or fails the request
+                quality = getattr(runtime, "quality", None)
+                if quality is not None:
+                    try:
+                        quality.register_forecast(
+                            res, float(h_s), blk["max_event_ts"] or None,
+                            cells)
+                    except Exception:  # noqa: BLE001 - observe-only
+                        log.warning("scorecard registration failed",
+                                    exc_info=True)
                 _mk("lookup")
                 ctype = "application/json"
             elif path.startswith("/api/hist/"):
@@ -2268,6 +2348,59 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
             elif path == "/":
                 body = render_index(refresh_ms, resolutions)
                 ctype = "text/html; charset=utf-8"
+            elif path == "/debug/quality":
+                # this process's quality observatory: the scorecard
+                # identity, rolling live skill per (grid, horizon), NIS
+                # calibration, the pending-card tail (obs.quality)
+                q_obs = getattr(runtime, "quality", None)
+                if q_obs is None:
+                    return _unavailable(
+                        "the quality observatory needs "
+                        "HEATMAP_QUALITY=1 and the kalman reducer in "
+                        "the serving process")
+                body = json.dumps(q_obs.snapshot())
+                ctype = "application/json"
+            elif path == "/debug/timeline":
+                # the retrospective incident timeline (obs.tsdb): healthz
+                # transitions, SLO alerts, shed/lagged bursts, retraces
+                # and flight records in time order, rebuilt from this
+                # member's retained blocks
+                if not (tsdb_on and tsdb_dir):
+                    return _unavailable(
+                        "the telemetry time machine needs "
+                        "HEATMAP_TSDB=1 and HEATMAP_TSDB_DIR")
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                since_s = _qs_int(params, "since", 3600, 7 * 86400)
+                now = time.time()
+                tag = serve_tsdb.tag if serve_tsdb is not None else None
+                reader = tsdbmod.TsdbReader(tsdb_dir)
+                if tag is None or tag not in reader.members():
+                    members = reader.members()
+                    tag = members[0] if members else None
+                entries = (tsdbmod.member_timeline(
+                    reader, tag, since=now - since_s,
+                    flightrec_dir=cfg.flightrec_dir or None)
+                    if tag is not None else [])
+                body = json.dumps({"member": tag, "since_s": since_s,
+                                   "entries": entries})
+                ctype = "application/json"
+            elif path == "/fleet/timeline":
+                # every member's timeline stitched, naming which member
+                # degraded FIRST — from retained blocks, so it rebuilds
+                # incidents for members that are already gone
+                if not (tsdb_on and tsdb_dir):
+                    return _unavailable(
+                        "the telemetry time machine needs "
+                        "HEATMAP_TSDB=1 and HEATMAP_TSDB_DIR")
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                since_s = _qs_int(params, "since", 3600, 7 * 86400)
+                payload = tsdbmod.fleet_timeline(
+                    tsdbmod.TsdbReader(tsdb_dir),
+                    since=time.time() - since_s,
+                    flightrec_dir=cfg.flightrec_dir or None)
+                payload["since_s"] = since_s
+                body = json.dumps(payload)
+                ctype = "application/json"
             elif path in _UNPORTED:
                 code, msg = _UNPORTED[path]
                 start_response(
@@ -2395,12 +2528,27 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
     app.serve_stats = stats
     app.view = view
     app.refresher = refresher
+    # the recorder and the SLO engine this app runs (serve-only) or rides
+    # (the runtime's)
+    app.tsdb = serve_tsdb
+    app.slo_engine = serve_slo
 
     def close():
         if cq_engine is not None:
             cq_engine.close()
         if follower is not None:
             follower.stop()
+        if serve_tsdb is not None and runtime is None:
+            # a serve-only recorder: the sampler joined, then a final
+            # scrape and flush, so the last window reaches the retained
+            # blocks (an attached runtime's recorder stops in the
+            # runtime's close)
+            serve_tsdb.stop()
+            try:
+                serve_tsdb.scrape_once()
+                serve_tsdb.flush()
+            except Exception:  # noqa: BLE001
+                pass
 
     app.close = close
     return app

@@ -98,10 +98,17 @@ the compile tracker on the fold's entry points and the memory monitor,
 sampled at 1 Hz (``runtimeinfo``); a ``torch.profiler`` window over
 ``HEATMAP_PROFILE_DIR`` or ``POST /debug/profile`` (``tracer``); and with
 ``HEATMAP_FLIGHTREC_DIR`` the flight recorder, dumped at an abnormal close
-(``flightrec``), and the SLO watchdog with the stack sampler.  The spans
-those read carry the reference's names and boundaries (poll, build, pad,
-transfer, pull, snap, device, sink_submit, prefetch, poll_fetch,
-poll_decode, poll_wait, infer); ``span_ms`` keeps the port's finer ones.
+(``flightrec``), and the SLO watchdog with the stack sampler.  With
+``HEATMAP_TSDB`` the telemetry history (``tsdb``, a recorder thread that
+scrapes this registry and the /healthz verdict into rings and blocks under
+``HEATMAP_TSDB_DIR``) and the SLO burn-rate engine (``slo_engine``); with
+``HEATMAP_QUALITY`` and the kalman reducer the quality observatory
+(``quality``), fed by the engine's fold, read by
+``/api/tiles/forecast``'s scorecards, and committed with the entity table
+as ``extra-quality.npz``.  The spans those read carry the reference's
+names and boundaries (poll, build, pad, transfer, pull, snap, device,
+sink_submit, prefetch, poll_fetch, poll_decode, poll_wait, infer);
+``span_ms`` keeps the port's finer ones.
 The mesh and the process fleet of the reference runtime are not ported
 yet.
 """
@@ -314,6 +321,10 @@ class MicroBatchRuntime:
         # port's names
         self.telemetry = Metrics()
         self.registry = self.telemetry.registry
+        # this member's tag: lineage ids, the quality observatory and the
+        # telemetry history's directory carry it (the reference's
+        # single-process runtime takes "p0")
+        self._fresh_tag = os.environ.get(ENV_FLEET_TAG) or "p0"
         self._n_batches = 0       # batches folded by this runtime
         self._n_polled = 0        # events those batches carried
         # emit pulls: flushes in all and by trigger, batches and bytes
@@ -422,6 +433,25 @@ class MicroBatchRuntime:
                     registry=self.registry,
                     interval_s=cfg.hist_compact_s)
                 self.hist_compactor.start()
+        # the inference quality observatory (obs.quality), under
+        # HEATMAP_QUALITY with the kalman reducer: live forecast scoring
+        # and calibration ledgers attached to the engine's fold, observe-
+        # only; without the knob nothing is built and no family registers
+        self.quality = None
+        if cfg.quality and self.infer is not None:
+            from heatmap_tpu_torch.obs.quality import QualityObservatory
+
+            self.quality = QualityObservatory(
+                cfg, registry=self.registry, view=self.matview,
+                tag=self._fresh_tag)
+            self.infer.quality = self.quality
+            # pending scorecards survive a restart and score against the
+            # history tier when their spans have left the rebuilt view
+            data = self.ckpt.load_extra("quality")
+            if data is not None:
+                n = self.quality.restore_extra(data)
+                log.info("restored quality ledger: %d pending "
+                         "scorecards", n)
         # the sink thread: tiles at each flush, positions at each dispatch
         self.writer = AsyncWriter(store, metrics=self.telemetry,
                                   view=self.matview)
@@ -441,6 +471,53 @@ class MicroBatchRuntime:
             get_sampler().ensure_started()
             self.slo_watchdog = SloWatchdog(self)
             self.slo_watchdog.start()
+        # the telemetry time machine (obs.tsdb) and the SLO burn-rate
+        # engine (obs.slo), under HEATMAP_TSDB: a sampler thread records
+        # this member's exposition and /healthz verdict into history
+        # rings (blocks under HEATMAP_TSDB_DIR) and evaluates the error
+        # budgets at each scrape; without the knob neither module is
+        # imported and no family registers
+        self.tsdb = None
+        self.slo_engine = None
+        if cfg.tsdb:
+            self._start_tsdb()
+
+    def _start_tsdb(self) -> None:
+        """Build and start the recorder and the SLO engine.  The scrape
+        renders the registry with the writer's counters (less the
+        retries, a registry series already) and the source's, as
+        ``/metrics`` does; the verdict is ``serve.api.healthz_payload``.
+        Both run on the recorder's thread, which reads host state only
+        (the memory gauges are sampled on the step thread)."""
+        from heatmap_tpu_torch.obs.slo import SloEngine
+        from heatmap_tpu_torch.obs.tsdb import TsdbRecorder
+        from heatmap_tpu_torch.obs.xproc import ENV_CHANNEL
+
+        cfg = self.cfg
+
+        def scrape() -> str:
+            extra = dict(self.writer.counters)
+            extra.pop("sink_retries", None)
+            extra.update(getattr(self.source, "counters", None) or {})
+            return self.telemetry.expose_text(extra_counters=extra)
+
+        def healthz() -> dict:
+            from heatmap_tpu_torch.serve.api import healthz_payload
+
+            return healthz_payload(self)[0]
+
+        self.tsdb = TsdbRecorder(
+            scrape, tag=self._fresh_tag, dir_path=cfg.tsdb_dir or None,
+            healthz_fn=healthz, registry=self.registry,
+            scrape_s=cfg.tsdb_scrape_s, retain_s=cfg.tsdb_retain_s,
+            hot_s=cfg.tsdb_hot_s, flush_s=cfg.tsdb_flush_s)
+        self.slo_engine = SloEngine(
+            self.tsdb, registry=self.registry, tag=self._fresh_tag,
+            budget_frac=cfg.slo_budget_frac,
+            budget_window_s=cfg.slo_budget_window_s,
+            channel_path=os.environ.get(ENV_CHANNEL),
+            flightrec=self.flightrec)
+        self.tsdb.start()
 
     def _init_introspection(self) -> None:
         """The reference's observability wiring: the profiler window, the
@@ -453,9 +530,8 @@ class MicroBatchRuntime:
         self._trace_cum = (0, 0, 0)
         # lineage ids are origin-tagged (``<tag>-<seq>``), the tag the
         # reference's single-process runtime takes
-        self.lineage = LineageTracker(
-            capacity=cfg.lineage_tail,
-            origin=os.environ.get(ENV_FLEET_TAG) or "p0")
+        self.lineage = LineageTracker(capacity=cfg.lineage_tail,
+                                      origin=self._fresh_tag)
         self._lineage_open: dict[int, dict] = {}
         self._carry_polled_at = 0.0  # the lineage poll stamp of a carry
         self.flightrec = None
@@ -477,10 +553,13 @@ class MicroBatchRuntime:
                 "prefetched": len(self._prefetched),
                 "writer_poisoned": self.writer.poisoned,
             })
-            # the reference's integrity and quality sources (ROADMAP A6c,
-            # A5): their subsystems are off here, as there by default
+            # the reference's integrity source (ROADMAP A6c): its
+            # subsystem is off here, as there by default
             fr.add_source("audit", lambda: None)
-            fr.add_source("quality", lambda: None)
+            # the calibration picture rides every dump, the SLO engine's
+            # drift-burn dump included
+            fr.add_source("quality", lambda: (self.quality.snapshot()
+                                              if self.quality else None))
             fr.add_source("runtimeinfo", lambda: self.runtimeinfo.snapshot())
             fr.add_source("stacks", lambda: get_sampler().tail(20))
             self.flightrec = fr
@@ -658,8 +737,13 @@ class MicroBatchRuntime:
         # the entity table is captured here, on the step thread: it must
         # cover exactly the batches the offsets cover, and the next
         # batch's fold would change it under the commit thread
-        extras = ({"infer": self.infer.snapshot()}
-                  if self.infer is not None else None)
+        extras = None
+        if self.infer is not None:
+            extras = {"infer": self.infer.snapshot()}
+            # the pending scorecards ride the same commit: torn, a resume
+            # would double-count or lose cards
+            if self.quality is not None:
+                extras["quality"] = self.quality.snapshot_extra()
         rec = {"epoch": epoch, "capture_ms": (time.monotonic() - t0) * 1e3}
         self.commits.append(rec)
 
@@ -1327,8 +1411,10 @@ class MicroBatchRuntime:
         writer, nothing is folded or committed: the last good commit
         stays, and its tail replays; a poisoned writer's close raises.
 
-        First the watchdog stops, and the flight recorder dumps (before the
-        drain, so the ring and prefetch depths still describe the
+        First the watchdog stops, then the telemetry history stops its
+        sampler, takes a last scrape and flushes, and the flight recorder
+        dumps (before
+        the drain, so the ring and prefetch depths still describe the
         incident) when the close is abnormal: a fail-mode overflow, a
         poisoned writer, or an exception unwinding through ``run()``
         (SIGTERM included, as ``stream/__main__.py`` turns it into
@@ -1339,6 +1425,18 @@ class MicroBatchRuntime:
 
         if self.slo_watchdog is not None:
             self.slo_watchdog.stop()
+        if self.tsdb is not None:
+            # one last scrape (final counters and verdict) and a forced
+            # flush, so the timeline covers the run's last window; the
+            # sampler is joined first, so that scrape never runs beside
+            # one of its own (they would race on the SLO engine's state
+            # and its slo-state.json)
+            self.tsdb.stop()
+            try:
+                self.tsdb.scrape_once()
+                self.tsdb.flush()
+            except Exception:  # noqa: BLE001 - telemetry never blocks
+                pass           # the teardown
         exc = sys.exc_info()[1]
         if isinstance(exc, SystemExit) and not exc.code:
             exc = None  # sys.exit(0) mid-run is a clean shutdown

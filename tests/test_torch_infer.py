@@ -565,11 +565,31 @@ def test_reducer_and_entity_knobs_load_as_in_jax(env):
                 == {f: getattr(jcfg, f) for f in fields})
 
 
-def test_quality_knob_still_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="HEATMAP_QUALITY") as e:
-        load_config({"HEATMAP_QUALITY": "1",
-                     "HEATMAP_REDUCERS": "count,kalman"})
-    assert "ROADMAP A5" in str(e.value) and "after A6b" in str(e.value)
+@pytest.mark.parametrize("reducers", ["count,kalman", "count"])
+def test_quality_knob_builds_the_observatory_with_kalman_only(tmp_path,
+                                                             reducers):
+    """HEATMAP_QUALITY=1 loads (it used to raise naming ROADMAP A5): on a
+    kalman runtime it builds the observatory and hands it to the engine's
+    fold, as the reference's runtime does; without kalman it builds
+    nothing and registers no family."""
+    cfg = load_config({"HEATMAP_QUALITY": "1",
+                       "HEATMAP_REDUCERS": reducers},
+                      checkpoint_dir=str(tmp_path), batch_size=1024,
+                      state_capacity_log2=12)
+    assert cfg.quality
+    rt = MicroBatchRuntime(cfg, SyntheticSource(n_events=8), MemoryStore(),
+                           device="cpu", checkpoint_every=0)
+    try:
+        if reducers == "count":
+            assert rt.infer is None and rt.quality is None
+            assert "heatmap_quality_" not in rt.registry.expose_text()
+        else:
+            assert rt.quality is not None
+            assert rt.infer.quality is rt.quality
+            assert ("heatmap_quality_nis_coverage"
+                    in rt.registry.expose_text())
+    finally:
+        rt.close()
 
 
 # --- the runtimes ------------------------------------------------------------

@@ -44,6 +44,19 @@ from heatmap_tpu_torch.sink.memory import MemoryStore
 from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
 from heatmap_tpu_torch.stream.source import MemorySource
 
+
+@pytest.fixture(autouse=True)
+def _quiesce_port_stack_sampler():
+    """Stop the port's process-wide stack sampler after each test, as
+    tests/conftest.py stops the JAX package's: a sampler left running
+    holds frame references into the later tests of the same worker (an
+    exported shared-memory view then blocks a SharedMemory close)."""
+    yield
+    from heatmap_tpu_torch.obs import prof
+
+    if prof._SAMPLER is not None:
+        prof._SAMPLER.stop()
+
 FAMILIES = ("heatmap_compile_total", "heatmap_compile_seconds",
             "heatmap_retrace_after_warmup_total")
 

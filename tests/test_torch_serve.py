@@ -223,16 +223,17 @@ def test_runtime_keeps_no_view_with_the_knob_off(tmp_path):
 def test_unported_routes_are_pinned(served):
     apps = served[0]
     assert tapi.UNPORTED_ROUTES == (
-        "/debug/audit", "/debug/delivery", "/debug/quality",
-        "/debug/timeline", "/fleet/audit", "/fleet/delivery",
-        "/fleet/freshness", "/fleet/healthz", "/fleet/metrics",
-        "/fleet/quality", "/fleet/timeline")
-    # the history and replication routes are served now: without their
-    # directories they answer the reference's 503 (the probes below)
+        "/debug/audit", "/debug/delivery", "/fleet/audit",
+        "/fleet/delivery", "/fleet/freshness", "/fleet/healthz",
+        "/fleet/metrics", "/fleet/quality")
+    # the history, replication, timeline and quality routes are served
+    # now: without their directories or knobs they answer the reference's
+    # 503 (the probes below)
     probes = list(tapi.UNPORTED_ROUTES) + [
         "/api/tiles/range", "/api/tiles/at", "/api/tiles/diff",
         "/api/hist/index", "/api/hist/chunk", "/api/repl/meta",
-        "/api/repl/feed"]
+        "/api/repl/feed", "/debug/quality", "/debug/timeline",
+        "/fleet/timeline"]
     for path in probes:
         s, _, b = call(apps[0], path)
         if s.startswith("503"):

@@ -367,16 +367,21 @@ ckpt = tempfile.mkdtemp()
 cfg = load_config({}, city="bos", h3_res=9, resolutions=(9,),
                   batch_size=1024, state_capacity_log2=12,
                   checkpoint_dir=ckpt, repl_dir=ckpt + "/feed",
-                  hist_dir=ckpt + "/hist")
+                  hist_dir=ckpt + "/hist", reducers=("count", "kalman"),
+                  tsdb=True, tsdb_dir=ckpt + "/tsdb", tsdb_scrape_s=600.0,
+                  quality=True)
 store = MemoryStore()
 rt = MicroBatchRuntime(cfg, SyntheticSource(n_events=2048), store,
                        device="cpu")
+assert rt.tsdb is not None and rt.quality is not None
 rt.run()
 assert store.n_tiles > 0 and store.n_positions > 0
 # the read path over the run's writer-fed view, in process
 app = make_wsgi_app(store, cfg, rt)
 for path in ("/api/tiles/latest", "/api/tiles/delta", "/metrics",
-             "/api/tiles/range", "/api/repl/meta", "/api/hist/index"):
+             "/api/tiles/range", "/api/repl/meta", "/api/hist/index",
+             "/api/tiles/forecast", "/debug/quality", "/debug/timeline",
+             "/fleet/timeline"):
     out = []
     body = b"".join(app({"PATH_INFO": path, "QUERY_STRING": "t0=0",
                          "REQUEST_METHOD": "GET"},
@@ -473,8 +478,7 @@ def test_entry_point_default_pipeline_matches_jax(monkeypatch):
 
 
 # the observability knobs still refused name their exact slice
-_KNOB_ITEMS = {"HEATMAP_TSDB": "A6b,", "HEATMAP_AUDIT": "A6c,",
-               "HEATMAP_DELIVERY": "A6c,"}
+_KNOB_ITEMS = {"HEATMAP_AUDIT": "A6c,", "HEATMAP_DELIVERY": "A6c,"}
 
 
 @pytest.mark.parametrize("knob,on,off", [
@@ -482,8 +486,6 @@ _KNOB_ITEMS = {"HEATMAP_TSDB": "A6b,", "HEATMAP_AUDIT": "A6c,",
     ("HEATMAP_SHARD_INDEX", "1", "0"),
     ("HEATMAP_GOVERN", "1", "0"),
     ("HEATMAP_AUDIT", "true", "false"),
-    ("HEATMAP_QUALITY", "1", ""),
-    ("HEATMAP_TSDB", "1", "0"),
     ("HEATMAP_DELIVERY", " On", "no"),
     ("HEATMAP_SUPERVISOR_CHANNEL", "channel.json", ""),
     ("HEATMAP_HEARTBEAT_FILE", "heartbeat", ""),
@@ -500,6 +502,54 @@ def test_unported_knob_raises_by_name(knob, on, off):
     assert f"ROADMAP {_KNOB_ITEMS.get(knob, 'A')}" in str(e.value)
     load_config({knob: off})
     jax_load_config({knob: off})
+
+
+# the telemetry time machine and the quality observatory (ROADMAP A6b,
+# A5): the knobs the port used to refuse load as in the reference
+_A6B_A5_FIELDS = ("tsdb", "tsdb_dir", "tsdb_scrape_s", "tsdb_retain_s",
+                  "tsdb_hot_s", "tsdb_flush_s", "slo_budget_frac",
+                  "slo_budget_window_s", "quality", "quality_window_s",
+                  "quality_lookback_s", "quality_mature_s", "quality_ttl_s",
+                  "reducers")
+
+
+@pytest.mark.parametrize("env", [
+    {"HEATMAP_TSDB": "1"},
+    {"HEATMAP_TSDB": "0"},
+    {"HEATMAP_TSDB": "true", "HEATMAP_TSDB_DIR": "tsdb",
+     "HEATMAP_TSDB_SCRAPE_S": "0.5", "HEATMAP_TSDB_RETAIN_S": "7200",
+     "HEATMAP_TSDB_HOT_S": "600", "HEATMAP_TSDB_FLUSH_S": "0",
+     "HEATMAP_SLO_BUDGET_FRAC": "0.05",
+     "HEATMAP_SLO_BUDGET_WINDOW_S": "3600"},
+    {"HEATMAP_QUALITY": "1"},
+    {"HEATMAP_QUALITY": "", "HEATMAP_REDUCERS": "count,kalman"},
+    {"HEATMAP_QUALITY": "1", "HEATMAP_REDUCERS": "count,kalman",
+     "HEATMAP_QUALITY_WINDOW_S": "60", "HEATMAP_QUALITY_LOOKBACK_S": "30",
+     "HEATMAP_QUALITY_MATURE_S": "0", "HEATMAP_QUALITY_TTL_S": "0"},
+    {"HEATMAP_TSDB": "1", "HEATMAP_QUALITY": "yes",
+     "HEATMAP_REDUCERS": "kalman,count"},
+])
+def test_observability_knob_loads_as_the_reference(env):
+    """HEATMAP_TSDB and HEATMAP_QUALITY (and their knobs) no longer raise:
+    each loads the same config fields as the reference's load_config."""
+    cfg, ref = load_config(env), jax_load_config(env)
+    assert ({f: getattr(cfg, f) for f in _A6B_A5_FIELDS}
+            == {f: getattr(ref, f) for f in _A6B_A5_FIELDS})
+
+
+@pytest.mark.parametrize("env", [
+    {"HEATMAP_TSDB_SCRAPE_S": "0"}, {"HEATMAP_TSDB_FLUSH_S": "-1"},
+    {"HEATMAP_TSDB_RETAIN_S": "60"}, {"HEATMAP_SLO_BUDGET_FRAC": "0"},
+    {"HEATMAP_SLO_BUDGET_FRAC": "1.5"},
+    {"HEATMAP_SLO_BUDGET_WINDOW_S": "0"}, {"HEATMAP_QUALITY_WINDOW_S": "0"},
+    {"HEATMAP_QUALITY_LOOKBACK_S": "-1"}, {"HEATMAP_QUALITY_MATURE_S": "-1"},
+    {"HEATMAP_QUALITY_MATURE_S": "120", "HEATMAP_QUALITY_TTL_S": "60"}])
+def test_observability_knobs_validated_as_in_jax(env):
+    with pytest.raises(ValueError) as ref:
+        jax_load_config(env)
+    with pytest.raises(ValueError) as mine:
+        load_config(env)
+    assert str(mine.value) == str(ref.value)
 
 
 # the serve tier's second slice (ROADMAP A4b): the knobs the port used

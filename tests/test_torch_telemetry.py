@@ -49,6 +49,19 @@ from heatmap_tpu_torch.stream.source import MemorySource
 from test_torch_serve import call
 from test_torch_stream import _pin_reference
 
+
+@pytest.fixture(autouse=True)
+def _quiesce_port_stack_sampler():
+    """Stop the port's process-wide stack sampler after each test, as
+    tests/conftest.py stops the JAX package's: a sampler left running
+    holds frame references into the later tests of the same worker (an
+    exported shared-memory view then blocks a SharedMemory close)."""
+    yield
+    from heatmap_tpu_torch.obs import prof
+
+    if prof._SAMPLER is not None:
+        prof._SAMPLER.stop()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 1024
 AXES = dict(city="bos", h3_res=8, resolutions=(8,), windows_minutes=(5,),
@@ -90,7 +103,7 @@ def make_events(seed=7):
     return evs
 
 
-def _run_both(tmp, reducers):
+def _run_both(tmp, reducers, env=None):
     mp = pytest.MonkeyPatch()
     _pin_reference(mp, {})
     mp.setenv("HEATMAP_H3_IMPL", "native")
@@ -101,6 +114,8 @@ def _run_both(tmp, reducers):
     try:
         for pkg in ("jax", "port"):
             d = tmp / pkg
+            for k, v in (env or {}).items():
+                mp.setenv(k, v.format(dir=d))
             mp.setenv("HEATMAP_TRACE_JSONL", str(d / "trace.jsonl"))
             kw = dict(AXES, checkpoint_dir=str(d / "ck"),
                       flightrec_dir=str(d / "fr"), reducers=reducers)
@@ -140,6 +155,22 @@ def kalman_runs(tmp_path_factory):
     out["port"][1].close()
 
 
+# the telemetry time machine and the quality observatory on (ROADMAP A6b,
+# A5); a scrape period longer than the run, so the recorders scrape only
+# at close
+KNOBS_ON = {"HEATMAP_TSDB": "1", "HEATMAP_TSDB_DIR": "{dir}/tsdb",
+            "HEATMAP_TSDB_SCRAPE_S": "600", "HEATMAP_QUALITY": "1"}
+
+
+@pytest.fixture(scope="module")
+def observed_runs(tmp_path_factory):
+    out = _run_both(tmp_path_factory.mktemp("observed"),
+                    ("count", "kalman"), KNOBS_ON)
+    yield out
+    out["jax"][1].close_repl()
+    out["port"][1].close()
+
+
 def registries(r):
     return r["jax"][0].metrics.registry, r["port"][0].registry
 
@@ -174,6 +205,26 @@ def test_kalman_run_registry_and_counters_match(kalman_runs):
         assert got == want, name
     assert (reg._families["heatmap_infer_fold_seconds"].count
             == jreg._families["heatmap_infer_fold_seconds"].count == 4)
+
+
+def test_knobs_on_registry_families_match(observed_runs):
+    """With HEATMAP_TSDB=1, HEATMAP_QUALITY=1 and kalman on, the families
+    both registries expose (the tsdb, SLO and quality families among
+    them) have the same types and labels, and the port exposes none of
+    its own."""
+    assert_families_match(observed_runs)
+    jreg, reg = registries(observed_runs)
+    added = {n for n in reg._families
+             if n.startswith(("heatmap_tsdb_", "heatmap_slo_",
+                              "heatmap_quality_"))}
+    assert added == {n for n in jreg._families
+                     if n.startswith(("heatmap_tsdb_", "heatmap_slo_",
+                                      "heatmap_quality_"))}
+    assert len(added) == 18, sorted(added)
+    for pkg in ("jax", "port"):
+        rt = observed_runs[pkg][0]
+        assert rt.tsdb is not None and rt.quality is not None
+        assert rt.tsdb.tag == "p0"
 
 
 def _mjson(r, pkg):
