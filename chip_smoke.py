@@ -5,6 +5,7 @@
     python3 chip_smoke.py obs 3     # the build, then the obs phase's runs
                                     # in 3 pairs (off, on / on, off / ...)
     python3 chip_smoke.py quality 3 # the same for the quality phase's runs
+    python3 chip_smoke.py audit 2   # the same for the audit phase's runs
 
 Phases, one JSON line each:
 
@@ -149,7 +150,7 @@ Phases, one JSON line each:
                 port's server on an ephemeral port during the run
                 (start_background) and a client thread following
                 /api/tiles/delta as the UI does: off, on, served, served
-                with HEATMAP_DELTA_LOG=2^16, on, off.  Each run: one snap
+                with HEATMAP_DELTA_LOG=2^16.  Each run: one snap
                 launch a batch, every event aggregated; events/s and p50
                 batch printed for each.  A flush upserts more cells than
                 the default 4,096-entry delta log holds, so the first
@@ -186,8 +187,9 @@ Phases, one JSON line each:
                 holds /latest's cells; /api/tiles/diff answers; the chunks
                 decode to the view's cells and counts; both workers
                 answered; the thread-core replica's bodies equal the
-                fleet's.  Printed: events/s and p50 batch beside the
-                serve phase's view-on runs, the replica lag (seqs and seconds, p50 and
+                fleet's.  Printed: events/s (and of the loop alone, poll
+                to the writer drained, and the close's seconds) and p50
+                batch beside the serve phase's view-on runs, the replica lag (seqs and seconds, p50 and
                 max), the feed's bytes, rotations and snapshot bytes, the
                 compactor's seconds a segment and chunk bytes, and the
                 range, at and diff times.
@@ -233,6 +235,31 @@ Phases, one JSON line each:
                 the blocks' bytes, the scorecards and the latest skill
                 per (grid, h), the NIS coverage, the timeline's entries
                 by kind and the flight record's slo-burn reason.
+16. audit       integrity, delivery and the fleet's observation plane
+                (ROADMAP A6c, A7a): the repl phase's deployment at its t0
+                with HEATMAP_AUDIT=1, HEATMAP_DELIVERY=1 and one
+                HEATMAP_SUPERVISOR_CHANNEL shared by the writer, the
+                two-worker epoll fleet and the thread-core replica
+                (members publish every 0.5 s), and one SSE subscriber on
+                each replica port beside the delta client.  The writer
+                folds through the step loop as ``run`` does; with it
+                drained and every replica at its seq: every feed record
+                carries its delivery stamp, and the last one publishing
+                the latest window's digest holds the writer's; four fresh
+                members (p0 and three serve<pid>), each replica verified
+                its digests through that record with no mismatch
+                (heatmap_audit_digests_verified_total > 0,
+                heatmap_audit_digest_mismatch_total 0); /fleet/healthz
+                names the four, /fleet/audit flags nothing (no digest or
+                shard-combine mismatch), /fleet/delivery has samples whose
+                residual is exactly 0.  Then the writer closes: one snap
+                launch a batch, every ledger residual 0, the docs equal to
+                the repl run's.  Printed: events/s of the loop (poll to
+                the writer drained; the close's seconds beside it) and
+                p50 batch beside the repl run's, the ledger's counts,
+                delivered age p50/p99
+                and each stage's p50 by replica, the verified counts, the
+                member count, the SSE frames each subscriber read.
 
 Then one line listing every kernel (launches on the main path and in
 every later phase, agreement with its plain version, its time, the plain
@@ -2536,10 +2563,11 @@ def serve_checks(torch, rt, store, cfg, port, follower, need_deltas: bool):
 SERVE_DELTA_LOG = 1 << 16
 # (view, served, delta_log) of each serve-phase run, in turns: the view
 # off, the view on, the view on with the server and a follower (the
-# default delta log, then SERVE_DELTA_LOG), and back
+# default delta log, then SERVE_DELTA_LOG).  The runs back (on, then off)
+# were cut to keep the whole script inside its time limit with the audit
+# phase
 SERVE_RUNS = ((False, False, None), (True, False, None), (True, True, None),
-              (True, True, SERVE_DELTA_LOG), (True, False, None),
-              (False, False, None))
+              (True, True, SERVE_DELTA_LOG))
 
 
 def phase_serve(torch, snap_kernel, ckpt_root, dev):
@@ -2697,10 +2725,27 @@ def dir_bytes(pattern):
     return len(paths), sum(os.path.getsize(p) for p in paths)
 
 
-def repl_run(torch, snap_kernel, ckpt_dir, dev):
+def drive_loop(rt) -> float:
+    """The runtime's ``run`` loop without its close: step until the source
+    is exhausted and an idle poll has flushed the ring, publishing the
+    member snapshot as ``run`` does, then drain the writer.  Returns its
+    seconds: poll to the last doc applied, without the close's exit
+    commit and the history compactor's catch-up (seconds a segment)."""
+    t = time.monotonic()
+    while True:
+        progressed = rt.step_once()
+        rt._publish_member_snapshot()
+        if not progressed and rt.source.exhausted:
+            break
+    rt.writer.drain()
+    return time.monotonic() - t
+
+
+def repl_run(torch, snap_kernel, ckpt_dir, dev, t0):
     """synthetic_backfill with the feed and the history tier on, the
     writer's app serving them, a two-worker epoll fleet and a thread-core
-    replica following it, and a delta client on the fleet."""
+    replica following it, and a delta client on the fleet.  Returns the
+    run's numbers and its docs."""
     from heatmap_tpu_torch.models.pipelines import get_pipeline
     from heatmap_tpu_torch.query import history as thist
     from heatmap_tpu_torch.serve import start_background, stop_background
@@ -2714,7 +2759,6 @@ def repl_run(torch, snap_kernel, ckpt_dir, dev):
     cfg = dataclasses.replace(p.config, checkpoint_dir=ckpt_dir,
                               serve_port=0, repl_dir=feed, hist_dir=hist,
                               delta_log=SERVE_DELTA_LOG)
-    t0 = (int(time.time()) // 300 - 1) * 300
     store = MemoryStore()
     snap_kernel.latlng_to_cell_kernel.launches = 0
     t_phase = time.monotonic()
@@ -2758,9 +2802,11 @@ def repl_run(torch, snap_kernel, ckpt_dir, dev):
         follower = DeltaFollower(fport)
         follower.start()
         probe = LagProbe(fport)
-        t_start = time.monotonic()
-        rt.run()
-        wall = time.monotonic() - t_start
+        loop_s = drive_loop(rt)
+        t_close = time.monotonic()
+        rt.close()
+        close_s = time.monotonic() - t_close
+        wall = loop_s + close_s
         follower.stop()
         lag = probe.stop()
         probe = None
@@ -2776,8 +2822,11 @@ def repl_run(torch, snap_kernel, ckpt_dir, dev):
         pids = wait_replicas(fport, seq, 2)
         wait_replicas(sport, seq, 1)
         catch_up_s = time.monotonic() - t_catch
-        out = {"events": m["events_valid"], "batches": m["batches"],
+        out = {"t0": t0, "events": m["events_valid"],
+               "batches": m["batches"],
                "wall_s": wall, "events_per_s": m["events_valid"] / wall,
+               "loop_s": loop_s, "close_s": close_s,
+               "events_per_s_loop": m["events_valid"] / loop_s,
                "p50_batch_ms": m["p50_batch_ms"], "snap_launches": launches,
                "view_seq": seq, "fleet_pids": sorted(pids),
                "catch_up_after_close_s": catch_up_s, "lag": lag}
@@ -2892,13 +2941,14 @@ def repl_run(torch, snap_kernel, ckpt_dir, dev):
                               / max(1, n_seg + n_live)),
             "busy_step_s_max": max((t for t, _ in busy), default=0.0),
             "decoded_equal_view": True,
-            # the digests need an audited feed (HEATMAP_AUDIT, ROADMAP A6)
+            # the digests need an audited feed (HEATMAP_AUDIT: the audit
+            # phase)
             "digest_verified": blk["verified"],
             "mismatches": blk["mismatches"]}
         if not st["chunks"] or blk["mismatches"]:
             raise AssertionError(f"compactor: {out['compactor']}")
         out["phase_wall_s"] = time.monotonic() - t_phase
-        return out
+        return out, dict(store._tiles)
     finally:
         if follower is not None:
             follower._stop.set()
@@ -2916,9 +2966,12 @@ def phase_repl(torch, snap_kernel, ckpt_root, dev, serve):
     """synthetic_backfill with the feed, the history tier, the replica
     fleet and a delta client: its checks and numbers, its events/s and p50
     batch beside the serve phase's view-on runs (the same call, the same
-    card)."""
+    card).  Returns its numbers and its docs, which the audit phase's run
+    over the same t0 must equal."""
+    t0 = (int(time.time()) // 300 - 1) * 300
+    r, docs = repl_run(torch, snap_kernel, f"{ckpt_root}/repl", dev, t0)
     out = {"phase": "repl", "source": dict(SERVE_SOURCE, t0="now-aligned"),
-           **repl_run(torch, snap_kernel, f"{ckpt_root}/repl", dev)}
+           **r}
     on = [r for r, k in zip(serve["runs"], SERVE_RUNS)
           if k == (True, False, None)]
     out["view_on_serve_phase"] = {
@@ -2927,7 +2980,7 @@ def phase_repl(torch, snap_kernel, ckpt_root, dev, serve):
     out["events_per_s_vs_view_on"] = [out["events_per_s"] / r["events_per_s"]
                                       for r in on]
     emit(out)
-    return out
+    return out, docs
 
 
 # the obs phase: the run's own introspection (ROADMAP A6a) over the serve
@@ -3483,12 +3536,337 @@ def quality_pairs(torch, snap_kernel, dev, n_pairs: int) -> None:
     emit(out)
 
 
-PAIRS = {"obs": obs_pairs, "quality": quality_pairs}
+# the audit phase: the repl phase's deployment with the integrity ledger
+# and digests (HEATMAP_AUDIT) and the delivery lineage (HEATMAP_DELIVERY)
+# on, one supervisor channel shared by the writer, the two-worker epoll
+# fleet and the thread-core replica, and one SSE subscriber on each replica
+# port beside the delta client
+AUDIT_PUBLISH_S = 0.5       # HEATMAP_FLEET_PUBLISH_S: member snapshot cadence
+AUDIT_KNOBS = ("HEATMAP_AUDIT", "HEATMAP_DELIVERY",
+               "HEATMAP_SUPERVISOR_CHANNEL", "HEATMAP_FLEET_PUBLISH_S")
+
+
+class SseReader:
+    """One /api/tiles/stream subscriber, read as it arrives: its frames and
+    bytes."""
+
+    def __init__(self, port):
+        import socket
+        import threading
+
+        self.frames = 0
+        self.bytes = 0
+        self.error = None
+        self._sock = socket.create_connection(("127.0.0.1", port),
+                                              timeout=120)
+        self._sock.sendall(b"GET /api/tiles/stream?since=0 HTTP/1.0\r\n\r\n")
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="sse-reader")
+        self._thread.start()
+
+    def _run(self):
+        tail = b""
+        try:
+            while True:
+                chunk = self._sock.recv(1 << 20)
+                if not chunk:
+                    return
+                self.bytes += len(chunk)
+                buf = tail + chunk
+                self.frames += buf.count(b"event: tiles")
+                tail = buf[-16:]
+                self.frames -= tail.count(b"event: tiles")
+        except OSError as e:
+            self.error = e
+
+    def stop(self):
+        import socket
+
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._sock.close()
+        self._thread.join(timeout=60)
+        return {"frames": self.frames, "bytes": self.bytes}
+
+
+def feed_records(hist, feed):
+    """Every record the writer published, by seq: the segments retired
+    into the history log and those the feed still holds."""
+    import glob
+
+    from heatmap_tpu_torch.query import history as thist
+
+    recs = {}
+    for d in (f"{hist}/log", feed):
+        for path in glob.glob(f"{d}/seg-*.jsonl"):
+            for rec in thist._read_segment(path):
+                recs[rec["seq"]] = rec
+    return recs
+
+
+def audit_checks(rt, cfg, wport, chan, hist, feed, seq):
+    """The phase's fleet gates, with the writer drained and every replica
+    at ``seq``: four fresh members, ``/fleet/audit`` clean, every replica
+    verified its digests with no mismatch through the last record that
+    published the latest window's digest, which equals the writer's;
+    delivered samples whose residual is exactly 0."""
+    from heatmap_tpu_torch.obs.fleet import parse_exposition
+    from heatmap_tpu_torch.obs.xproc import members_from
+
+    grid = cfg.default_grid()
+    latest = rt.matview.latest_ws_of(grid)
+    want = format(rt.matview.audit_digest(grid, latest), "016x")
+    recs = feed_records(hist, feed)
+    last = max(s for s, r in recs.items()
+               if str(latest) in (r.get("dg") or {}).get(grid, {}))
+    if recs[last]["dg"][grid][str(latest)] != want:
+        raise AssertionError(f"the feed's last digest of the latest window "
+                             f"(seq {last}) differs from the writer's")
+    if not all("pt" in r for r in recs.values()):
+        raise AssertionError("a feed record carries no delivery stamp")
+    rt._publish_member_snapshot(force=True)
+    deadline = time.monotonic() + 120
+    while True:
+        members, skipped = members_from(chan)
+        serve = {t: m for t, m in members.items() if m["role"] == "serve"}
+        done = (len(members) == 4 and not skipped and all(
+            m["audit"]["verify"]["last_verified_seq"] >= last
+            for m in serve.values()))
+        if done or time.monotonic() > deadline:
+            break
+        time.sleep(AUDIT_PUBLISH_S)
+    if not done:
+        raise AssertionError(f"fleet members {sorted(members)}, skipped "
+                             f"{skipped}: not four fresh members verified "
+                             f"through seq {last}")
+    verified = {}
+    for tag, m in sorted(serve.items()):
+        v = m["audit"]["verify"]
+        _, samples = parse_exposition(m["metrics_text"])
+        series = {name: val for name, _, val in samples}
+        counted = (series.get("heatmap_audit_digests_verified_total", 0),
+                   series.get("heatmap_audit_digest_mismatch_total", -1))
+        if not (v["verified"] > 0 and v["mismatches"] == 0
+                and counted[0] > 0 and counted[1] == 0):
+            raise AssertionError(f"replica {tag}: verify {v}, counted "
+                                 f"{counted}")
+        verified[tag] = v["verified"]
+    status, _, body, _ = http_get(wport, "/fleet/healthz")
+    hz = json.loads(body)
+    if hz["members"] != sorted(members) or hz["stale_members"]:
+        raise AssertionError(f"/fleet/healthz: {hz}")
+    status, _, body, _ = http_get(wport, "/fleet/audit")
+    fa = json.loads(body)
+    if status != 200 or not fa["ok"] or fa["digest_mismatches"] \
+            or fa["combine_mismatches"]:
+        raise AssertionError(f"/fleet/audit flags: ok {fa['ok']}, "
+                             f"{fa['digest_mismatches']} digest and "
+                             f"{fa['combine_mismatches']} combine mismatches")
+    status, _, body, _ = http_get(wport, "/fleet/delivery")
+    fd = json.loads(body)
+    blocks = {t: b for t, b in fd["members"].items() if b.get("count")}
+    if (status != 200 or not blocks
+            or any(b["max_abs_residual_s"] != 0.0 for b in blocks.values())):
+        raise AssertionError(f"/fleet/delivery: {fd}")
+    return {"members": sorted(members), "member_count": len(members),
+            "fleet_healthz": hz["status"],
+            "combine_windows": len(fa["combine"]),
+            "verified": verified, "verified_total": sum(verified.values()),
+            "verified_through_seq": last,
+            "delivery": {t: {k: b[k] for k in (
+                "count", "age_p50_s", "age_p99_s", "stages_p50_s",
+                "worst_stage", "max_abs_residual_s")}
+                for t, b in blocks.items()}}
+
+
+def audit_run(torch, snap_kernel, ckpt_dir, dev, on: bool, t0: int):
+    """The repl phase's deployment, the knobs ``on`` or off (and with them
+    the channel): the writer folds synthetic_backfill through the step loop
+    as ``run`` does, the fleet gates run with the writer drained and the
+    replicas caught up, then the writer closes.  Returns the run's numbers
+    and its docs.  ``events_per_s_loop`` (poll to the writer drained) is
+    what compares across runs: the gates' time before the close lets the
+    history compactor catch up off the clock, so the close's seconds
+    differ with them."""
+    from heatmap_tpu_torch.infer import kalman
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.serve import start_background, stop_background
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+    from heatmap_tpu_torch.stream.source import SyntheticSource
+
+    p = get_pipeline("synthetic_backfill")
+    feed, hist = f"{ckpt_dir}/feed", f"{ckpt_dir}/hist"
+    chan = f"{ckpt_dir}/fleet/channel.json"
+    os.makedirs(os.path.dirname(chan), exist_ok=True)
+    knobs = (dict(HEATMAP_AUDIT="1", HEATMAP_DELIVERY="1",
+                  HEATMAP_SUPERVISOR_CHANNEL=chan,
+                  HEATMAP_FLEET_PUBLISH_S=str(AUDIT_PUBLISH_S))
+             if on else {})
+    cfg = dataclasses.replace(p.config, checkpoint_dir=ckpt_dir,
+                              serve_port=0, repl_dir=feed, hist_dir=hist,
+                              delta_log=SERVE_DELTA_LOG, audit=on)
+    saved = {k: os.environ.pop(k, None) for k in AUDIT_KNOBS}
+    os.environ.update(knobs)
+    store = MemoryStore()
+    snap_kernel.latlng_to_cell_kernel.launches = 0
+    kalman.kalman_rounds.launches = 0
+    rt = MicroBatchRuntime(cfg, SyntheticSource(t0=t0, **SERVE_SOURCE),
+                           store, device=dev)
+    httpd, thread, wport = start_background(store, cfg, rt)
+    env = {k: v for k, v in os.environ.items()
+           if k != "PYTHONSTARTUP" and k not in AUDIT_KNOBS}
+    env.update(knobs, HEATMAP_STORE="memory", SERVE_HOST="127.0.0.1",
+               HEATMAP_REPL_FEED=f"http://127.0.0.1:{wport}",
+               H3_RES=str(cfg.h3_res),
+               H3_RESOLUTIONS=",".join(map(str, cfg.resolutions)),
+               TILE_MINUTES=str(cfg.tile_minutes),
+               WINDOW_MINUTES=",".join(map(str, cfg.windows_minutes)),
+               HEATMAP_DELTA_LOG=str(cfg.delta_log),
+               HEATMAP_PYRAMID_LEVELS=str(cfg.pyramid_levels))
+    procs, readers = [], []
+    follower = probe = None
+    closed = False
+    try:
+        fleet, fport = start_fleet(
+            ["--workers", "2", "--port", "0"],
+            dict(env, HEATMAP_SERVE_CORE="epoll"), "the replica fleet")
+        procs.append(fleet)
+        single, sport = start_fleet(
+            ["--workers", "1", "--port", "0"],
+            dict(env, HEATMAP_SERVE_CORE="thread"), "the thread replica")
+        procs.append(single)
+        wait_replicas(fport, 0, 2)
+        wait_replicas(sport, 0, 1)
+        readers = [SseReader(fport), SseReader(sport)]
+        follower = DeltaFollower(fport)
+        follower.start()
+        probe = LagProbe(fport)
+        loop_s = drive_loop(rt)
+        follower.stop()
+        probe.stop()
+        probe = None
+        seq = rt.matview.seq
+        wait_replicas(fport, seq, 2)
+        wait_replicas(sport, seq, 1)
+        out = {"on": on}
+        if on:
+            out.update(audit_checks(rt, cfg, wport, chan, hist, feed, seq))
+        t_close = time.monotonic()
+        rt.close()
+        closed = True
+        close_s = time.monotonic() - t_close
+        wall = loop_s + close_s
+        m = rt.metrics
+        launches = snap_kernel.latlng_to_cell_kernel.launches
+        want = m["batches"] if dev.type == "cuda" else 0
+        if launches != want or m["events_valid"] != MAIN_EVENTS:
+            raise AssertionError(f"audit run: {launches} snap launches in "
+                                 f"{m['batches']} batches, "
+                                 f"{m['events_valid']} events")
+        out.update({"events": m["events_valid"], "batches": m["batches"],
+                    "wall_s": wall, "events_per_s": m["events_valid"] / wall,
+                    "loop_s": loop_s, "close_s": close_s,
+                    "events_per_s_loop": m["events_valid"] / loop_s,
+                    "p50_batch_ms": m["p50_batch_ms"],
+                    "snap_launches": launches,
+                    "kalman_launches": kalman.kalman_rounds.launches,
+                    "view_seq": seq})
+        if on:
+            res = rt.audit.residuals()
+            if any(res.values()):
+                raise AssertionError(f"ledger residuals after the writer's "
+                                     f"close: {res}")
+            out["ledger"] = rt.audit.counts()
+            out["residuals_after_close"] = res
+        return out, dict(store._tiles)
+    finally:
+        if follower is not None:
+            follower._stop.set()
+        if probe is not None:
+            probe._stop.set()
+        sse = [r.stop() for r in readers]
+        if sse:
+            print(json.dumps({"audit_run_sse": sse, "on": on}), flush=True)
+        for proc in procs:
+            stop_process(proc)
+        stop_background(httpd, thread)
+        if not closed:
+            rt.close()
+        for k in AUDIT_KNOBS:
+            os.environ.pop(k, None)
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+        del rt, store
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def phase_audit(torch, snap_kernel, ckpt_root, dev, repl, repl_docs):
+    """The repl phase's deployment with the integrity and delivery knobs
+    on and the fleet's channel: the gates of ``audit_checks``, every ledger
+    residual 0 after the writer's close, the docs equal to the same call's
+    repl run's (the knobs observe only); its events/s and p50 batch beside
+    the repl run's."""
+    r, docs = audit_run(torch, snap_kernel, f"{ckpt_root}/audit", dev, True,
+                        repl["t0"])
+    if docs != repl_docs:
+        raise AssertionError("the audit run's docs differ from the repl "
+                             "run's")
+    out = {"phase": "audit", "source": dict(SERVE_SOURCE, t0="now-aligned"),
+           **r, "docs_equal_repl": True,
+           "repl_run": {k: repl[k] for k in (
+               "events_per_s_loop", "events_per_s", "p50_batch_ms",
+               "loop_s", "close_s")},
+           "events_per_s_loop_vs_repl": (r["events_per_s_loop"]
+                                         / repl["events_per_s_loop"])}
+    emit(out)
+    return out
+
+
+def audit_pairs(torch, snap_kernel, dev, n_pairs: int) -> None:
+    """The audit phase's deployment in ``n_pairs`` pairs after an
+    uncounted warm run, the knobs off then on, then on then off, ...:
+    every run's line, then each side's medians (the knobs' cost)."""
+    t0 = (int(time.time()) // 300 - 1) * 300
+    root = tempfile.mkdtemp(prefix="chip_smoke-audit-")
+    runs = []
+    try:
+        audit_run(torch, snap_kernel, f"{root}/warm", dev, False, t0)
+        for i in range(2 * n_pairs):
+            on = (i % 2 == 0) == (i // 2 % 2 == 1)
+            r, _ = audit_run(torch, snap_kernel, f"{root}/r{i}", dev, on,
+                             t0)
+            line = {"audit_pair_run": i, **{k: r[k] for k in (
+                "on", "events_per_s_loop", "events_per_s", "p50_batch_ms",
+                "loop_s", "close_s")}}
+            if on:
+                line.update({k: r[k] for k in ("verified_total",
+                                               "member_count", "ledger")})
+            emit(line)
+            runs.append(r)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"audit_pairs": n_pairs}
+    for label, on in (("off", False), ("on", True)):
+        mine = [r for r in runs if r["on"] == on]
+        for k in ("events_per_s_loop", "p50_batch_ms"):
+            vals = sorted(r[k] for r in mine)
+            out[f"{k}_{label}"] = {"median": float(np.median(vals)),
+                                   "min": vals[0], "max": vals[-1]}
+    out["events_per_s_loop_on_over_off_medians"] = (
+        out["events_per_s_loop_on"]["median"]
+        / out["events_per_s_loop_off"]["median"])
+    emit(out)
+
+
+PAIRS = {"obs": obs_pairs, "quality": quality_pairs, "audit": audit_pairs}
 
 
 def main(argv=()) -> int:
-    """The whole smoke run; ``obs N`` / ``quality N`` run the build and
-    ``obs_pairs`` / ``quality_pairs`` with N pairs instead (a measurement
+    """The whole smoke run; ``obs N`` / ``quality N`` / ``audit N`` run the
+    build and that phase's ``*_pairs`` with N pairs instead (a measurement
     of that phase's knobs)."""
     import torch
 
@@ -3496,7 +3874,8 @@ def main(argv=()) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if argv and (len(argv) != 2 or argv[0] not in PAIRS):
-        print("usage: chip_smoke.py [obs|quality N_PAIRS]", file=sys.stderr)
+        print("usage: chip_smoke.py [obs|quality|audit N_PAIRS]",
+              file=sys.stderr)
         return 2
     from heatmap_tpu_torch import _build
     from heatmap_tpu_torch.hexgrid import snap_kernel
@@ -3557,9 +3936,13 @@ def main(argv=()) -> int:
                                 dev)
         infer = phase_infer(torch, run_pipeline, snap_kernel, ckpt_root, dev)
         serve = phase_serve(torch, snap_kernel, ckpt_root, dev)
-        repl = phase_repl(torch, snap_kernel, ckpt_root, dev, serve)
+        repl, repl_docs = phase_repl(torch, snap_kernel, ckpt_root, dev,
+                                     serve)
         obs = phase_obs(torch, snap_kernel, ckpt_root, dev)
         quality = phase_quality(torch, snap_kernel, ckpt_root, dev)
+        audit = phase_audit(torch, snap_kernel, ckpt_root, dev, repl,
+                            repl_docs)
+        del repl_docs
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     # the rounds kernel's numbers at the main path's shape: the round set
@@ -3590,6 +3973,7 @@ def main(argv=()) -> int:
         "launches_obs_phase": [r["snap_launches"] for r in obs["runs"]],
         "launches_quality_phase": [r["snap_launches"]
                                    for r in quality["runs"]],
+        "launches_audit_phase": audit["snap_launches"],
         "obs_profile_window_kernel_events": [
             r["profile"]["snap_kernel_events"] for r in obs["runs"]
             if r["on"]],
@@ -3609,6 +3993,7 @@ def main(argv=()) -> int:
         "launches": infer["kalman_launches"],
         "launches_quality_phase": [r["kalman_launches"]
                                    for r in quality["runs"]],
+        "launches_audit_phase": audit["kalman_launches"],
         "max_abs_err": main_rounds["max_abs_err"],
         "identical_share": min(f["identical"]
                                for f in main_rounds["fields"].values()),

@@ -38,8 +38,6 @@ def _flag_on(v: str) -> bool:
     return v not in ("0", "false", "")
 
 
-# knob -> (does this value ask for the subsystem?, the ROADMAP item that
-# ports it); the reference's value when the knob is unset never does
 # HEATMAP_REDUCERS' closed name set, in canonical order
 KNOWN_REDUCERS = ("count", "kalman")
 
@@ -67,21 +65,17 @@ def parse_reducers(spec: str) -> tuple:
     return tuple(n for n in KNOWN_REDUCERS if n in seen)
 
 
-def _delivery_on(v: str) -> bool:
-    """HEATMAP_DELIVERY as the reference's ``delivery_enabled`` reads it."""
-    return v.strip().lower() in ("1", "true", "yes", "on")
-
-
+# knob -> (does this value ask for the subsystem?, the ROADMAP item that
+# ports it); the reference's value when the knob is unset never does.
+# HEATMAP_DELIVERY and HEATMAP_SUPERVISOR_CHANNEL are read where they are
+# used (obs.delivery, obs.xproc), as in the reference
 UNPORTED_KNOBS = {
-    "HEATMAP_SHARDS": (lambda v: int(v) > 1, "A7, the process fleet"),
-    "HEATMAP_SHARD_INDEX": (lambda v: int(v) != 0, "A7, the process fleet"),
-    "HEATMAP_GOVERN": (_flag_on, "A7, the governor"),
-    "HEATMAP_AUDIT": (_flag_on, "A6c, integrity and delivery"),
-    # the feed's publish stamps (obs/delivery.py: on for 1|true|yes|on)
-    "HEATMAP_DELIVERY": (_delivery_on, "A6c, integrity and delivery"),
-    # the supervisor's member channel (obs/xproc.py) and liveness beacon
-    "HEATMAP_SUPERVISOR_CHANNEL": (bool, "A7, the process fleet"),
-    "HEATMAP_HEARTBEAT_FILE": (bool, "A7, the process fleet"),
+    "HEATMAP_SHARDS": (lambda v: int(v) > 1, "A7b, the sharded runtime"),
+    "HEATMAP_SHARD_INDEX": (lambda v: int(v) != 0,
+                            "A7b, the sharded runtime"),
+    "HEATMAP_GOVERN": (_flag_on, "A7b, the governor"),
+    # the supervisor's liveness beacon (stream/supervisor.py)
+    "HEATMAP_HEARTBEAT_FILE": (bool, "A7b, the supervisor"),
     # jax.distributed and a mesh (parallel/multihost.py, stream/__main__)
     "HEATMAP_COORDINATOR": (bool, "A8, the mesh"),
     "NUM_SHARDS": (lambda v: int(v) > 1, "A8, the mesh"),
@@ -149,7 +143,7 @@ class Config:
     store: str = "auto"                # "auto" | "memory" | "mongo" | "jsonl"
     # HEATMAP_SHARD_RES: H3 parent resolution of a partition key; -1 = the
     # snap resolution itself.  Read by the logical entity partition
-    # (HEATMAP_ENTITY_SHARDS); the process fleet is not ported
+    # (HEATMAP_ENTITY_SHARDS); the sharded runtime is ROADMAP A7b
     shard_res: int = -1
     # HEATMAP_REDUCERS: the per-step reducer set riding the dispatched
     # batches (parse_reducers); "count" is the fused device fold itself
@@ -343,6 +337,20 @@ class Config:
     quality_ttl_s: float = 3600.0      # HEATMAP_QUALITY_TTL_S: a matured
                                        # scorecard unanswerable this long
                                        # expires as expired_unscorable
+    audit: bool = False                # HEATMAP_AUDIT: the integrity
+                                       # observatory (obs/audit.py) —
+                                       # observe-only event-conservation
+                                       # ledger at every pipeline
+                                       # boundary plus per-(grid,
+                                       # window) content digests
+                                       # verified across replicas.  Zero
+                                       # data-path mutation; 0 (the
+                                       # default) disables entirely
+    audit_settle_s: float = 10.0       # HEATMAP_AUDIT_SETTLE_S: how
+                                       # long a non-zero ledger
+                                       # residual must go without
+                                       # draining before /healthz
+                                       # degrades naming the boundary
 
     def pair_grid(self, res: int, wmin: int) -> str:
         """Sink grid label for a (res, window) pair: "h3r{res}" for the
@@ -478,6 +486,9 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         cq_events=_int(e, "HEATMAP_CQ_EVENTS", Config.cq_events),
         cq_max_cells=_int(e, "HEATMAP_CQ_MAX_CELLS",
                           Config.cq_max_cells),
+        audit=e.get("HEATMAP_AUDIT", "0") not in ("0", "false", ""),
+        audit_settle_s=_float(e, "HEATMAP_AUDIT_SETTLE_S",
+                              Config.audit_settle_s),
     )
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -627,6 +638,10 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         raise ValueError(
             f"HEATMAP_CQ_MAX_CELLS must be >= 1, "
             f"got {cfg.cq_max_cells}")
+    if cfg.audit_settle_s <= 0:
+        raise ValueError(
+            f"HEATMAP_AUDIT_SETTLE_S must be > 0, "
+            f"got {cfg.audit_settle_s}")
     if cfg.tsdb_scrape_s <= 0:
         raise ValueError(
             f"HEATMAP_TSDB_SCRAPE_S must be > 0, "

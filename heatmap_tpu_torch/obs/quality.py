@@ -55,9 +55,9 @@ body is built and scoring never touches view state, so the same
 surfaces stay byte-identical either way.  Unlike the reference's, the
 identity counts the cards ``mature`` is scoring as pending, so a reader on
 another thread (``/healthz``, the recorder's scrape) never sees it broken
-while they are scored.  ``member_block`` is what the
-fleet snapshot would publish (ROADMAP A7); ``/debug/quality`` serves
-:meth:`QualityObservatory.snapshot`.
+while they are scored.  ``member_block`` is the ``quality`` block of the
+runtime's fleet member snapshot, which ``/fleet/quality`` stitches;
+``/debug/quality`` serves :meth:`QualityObservatory.snapshot`.
 """
 
 from __future__ import annotations
@@ -554,9 +554,9 @@ class QualityObservatory:
         return checks, degraded
 
     def member_block(self) -> dict:
-        """The fleet snapshot's ``quality`` block — the reference's
-        /fleet/quality plain-sums these and names the worst shard (the
-        port's fleet is ROADMAP A7); ``snapshot`` builds on it."""
+        """The fleet snapshot's ``quality`` block (obs.xproc) —
+        /fleet/quality plain-sums these and names the worst shard;
+        ``snapshot`` builds on it."""
         with self._lock:
             cal = self._window_stats_locked()
             skill = {f"{g}|{h}": round(sum(r) / len(r), 4)

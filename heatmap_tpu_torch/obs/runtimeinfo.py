@@ -34,9 +34,11 @@ the memory numbers come from:
 ``HEATMAP_SLO_WATCHDOG_S`` (default 10) off the request path and, on the
 transition into degraded or down, writes an enriched flight record (the
 runtime's sources plus the verdict).  One dump per episode,
-``HEATMAP_SLO_CAPTURE_COOLDOWN_S`` (default 300) between dumps.  The
-reference's fleet episodes (one correlated dump per member, over the
-supervisor channel) come with the process fleet (ROADMAP A7).
+``HEATMAP_SLO_CAPTURE_COOLDOWN_S`` (default 300) between dumps.  With a
+supervisor channel (``HEATMAP_SUPERVISOR_CHANNEL``) it runs in fleet mode,
+as the reference's does: the first member to degrade claims one episode
+id on the channel and every member's watchdog writes its own dump under
+that id.
 """
 
 from __future__ import annotations
@@ -333,29 +335,46 @@ class SloWatchdog:
     """Re-evaluates the /healthz verdict off the request path and
     auto-captures an enriched flight-recorder dump when it degrades.
 
-    One capture per degradation episode: the episode is claimed only once
-    a dump lands, so a degradation that begins inside the cooldown (or
-    while the disk refuses the write) is retried on later ticks; recovery
-    to ok re-arms."""
+    **Fleet mode** (a supervisor channel is attached): the first member
+    whose verdict transitions into degraded claims ONE episode id on
+    the channel (``obs.xproc.broadcast_episode``); every other member's
+    watchdog sees the broadcast on its next tick and writes its OWN
+    correlated dump under the same id — one incident, one dump set,
+    even for members whose local /healthz never budged.  A member
+    degrading while an episode is already open JOINS it instead of
+    minting a second id.  ``runtime`` may be ``None`` for serve-only /
+    sidecar members (the /healthz evaluation then covers the channel
+    SLOs only); pass ``flightrec`` explicitly in that case."""
 
     def __init__(self, runtime, interval_s: float | None = None,
-                 cooldown_s: float | None = None, *, flightrec=None):
-        from heatmap_tpu_torch.obs.xproc import ENV_CHANNEL
+                 cooldown_s: float | None = None, *,
+                 channel_path: str | None = None, tag: str | None = None,
+                 flightrec=None):
+        from heatmap_tpu_torch.obs.xproc import ENV_CHANNEL, ENV_FLEET_TAG
 
-        if os.environ.get(ENV_CHANNEL):
-            raise NotImplementedError(
-                f"{ENV_CHANNEL}: fleet episodes are not ported to "
-                f"heatmap_tpu_torch yet (ROADMAP A7); unset it")
         self.runtime = runtime
         self.interval_s = (_env_float(ENV_WATCHDOG_S, 10.0)
                            if interval_s is None else float(interval_s))
         self.cooldown_s = (_env_float(ENV_COOLDOWN_S, 300.0)
                            if cooldown_s is None else float(cooldown_s))
+        self.channel_path = (os.environ.get(ENV_CHANNEL)
+                             if channel_path is None else channel_path
+                             ) or None
+        self.tag = (tag or os.environ.get(ENV_FLEET_TAG)
+                    or f"pid{os.getpid()}")
         self._flightrec = flightrec
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._was_bad = False
         self._last_dump = -float("inf")
+        # episodes broadcast before this process existed are not ours
+        # to correlate: a restarted member's dump would describe healthy
+        # post-restart boot state, pure noise in the incident's dump set
+        self._boot_unix = time.time()
+        # episode ids this member already captured (its own broadcasts
+        # included, so the follow path never double-dumps); bounded
+        self._episodes_done: collections.deque = collections.deque(
+            maxlen=64)
         self.n_captures = 0
 
     @property
@@ -385,17 +404,36 @@ class SloWatchdog:
                 log.exception("SLO watchdog check failed")
 
     def check_once(self) -> str | None:
-        """One evaluation; returns the dump path when a capture fired."""
+        """One evaluation; returns the dump path when a capture fired.
+        One capture per degradation EPISODE — but the episode is only
+        claimed once a dump actually lands: a degradation beginning
+        inside the cooldown window (or while the disk refuses the
+        write) keeps retrying on later ticks instead of silently
+        consuming its one transition.  Recovery to ok re-arms.  In
+        fleet mode a FOREIGN episode broadcast triggers a correlated
+        dump first, even when local /healthz is ok."""
         from heatmap_tpu_torch.serve.api import healthz_payload
 
         payload, down = healthz_payload(self.runtime)
         bad = down or payload.get("status") == "degraded"
         now = time.monotonic()
+        path = self._follow_fleet_episode(payload, now)
         if not bad:
+            if self._was_bad and self.channel_path:
+                # recovery closes the episode THIS member claimed so the
+                # next incident mints a fresh id instead of joining (and
+                # being dump-suppressed by) a finished one; an episode
+                # some other member originated is left for its owner
+                from heatmap_tpu_torch.obs.xproc import clear_episode
+
+                clear_episode(self.channel_path, origin=self.tag)
             self._was_bad = False
-            return None
-        if self._was_bad:
-            return None
+            return path
+        if self._was_bad or path is not None:
+            # already captured — either earlier in this episode or just
+            # now under the fleet id (which covers this degradation)
+            self._was_bad = True
+            return path
         if now - self._last_dump < self.cooldown_s:
             return None
         rec = self.flightrec
@@ -405,11 +443,71 @@ class SloWatchdog:
                    if isinstance(c, dict) and not c.get("ok", True)]
         reason = "slo degraded: " + (", ".join(failing)
                                      or payload.get("status", "?"))
-        snap = rec.spawn()
-        snap.add_source("healthz", lambda p=payload: p)
-        path = snap.dump(reason)
+        episode = {}
+        if self.channel_path:
+            from heatmap_tpu_torch.obs.xproc import ensure_episode
+
+            episode = ensure_episode(self.channel_path, self.tag, reason)
+            eid = episode.get("episode_id")
+            if eid:
+                self._episodes_done.append(eid)
+                reason = f"{reason} (episode {eid})"
+        path = self._dump(rec, payload, reason, episode)
         if path is not None:
             self._was_bad = True
             self._last_dump = now
             self.n_captures += 1
         return path
+
+    def _follow_fleet_episode(self, payload: dict, now: float):
+        """Correlated capture for an episode ANOTHER member opened: one
+        dump per episode id, under the shared id."""
+        if not self.channel_path:
+            return None
+        from heatmap_tpu_torch.obs.xproc import read_episode
+
+        ep = read_episode(self.channel_path)
+        eid = ep.get("episode_id")
+        if (not eid or eid in self._episodes_done
+                or ep.get("origin") == self.tag):
+            return None
+        upd = ep.get("updated_unix")
+        # compare at the broadcast stamp's OWN precision: updated_unix
+        # is round(time.time(), 3), which can round DOWN up to half a
+        # millisecond — against a full-precision boot stamp, a
+        # broadcast issued microseconds AFTER boot would classify as
+        # pre-boot and be skipped forever; a same-millisecond tie goes
+        # to dumping (one extra correlated dump beats a silently
+        # missing one)
+        if isinstance(upd, (int, float)) \
+                and upd < round(self._boot_unix, 3):
+            # broadcast predates this process (we restarted into an
+            # in-flight incident): our dump would describe post-boot
+            # state that never saw the incident — skip, once
+            self._episodes_done.append(eid)
+            return None
+        if now - self._last_dump < self.cooldown_s:
+            return None
+        rec = self.flightrec
+        if rec is None:
+            # no recorder will ever land this dump — mark done so the
+            # tick loop doesn't re-walk the file forever
+            self._episodes_done.append(eid)
+            return None
+        path = self._dump(
+            rec, payload,
+            f"fleet episode {eid} from {ep.get('origin', '?')}: "
+            f"{ep.get('reason', '')}", ep)
+        if path is not None:
+            self._episodes_done.append(eid)
+            self._last_dump = now
+            self.n_captures += 1
+        return path
+
+    @staticmethod
+    def _dump(rec, payload: dict, reason: str, episode: dict):
+        snap = rec.spawn()
+        snap.add_source("healthz", lambda p=payload: p)
+        if episode:
+            snap.add_source("episode", lambda e=dict(episode): e)
+        return snap.dump(reason, episode_id=episode.get("episode_id"))

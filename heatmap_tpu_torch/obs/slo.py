@@ -19,16 +19,15 @@ SRE answer on top of the telemetry history (:mod:`obs.tsdb`):
   budget rate — the Google SRE workbook construction, scaled from the
   canonical 30-day windows to ``HEATMAP_SLO_BUDGET_WINDOW_S``.
 
-A firing alert records a durable event into the tsdb (the flush happens
-at fire time, exactly when the process may die next), dumps the flight
-record enriched with the budget ledger and the offending series' recent
-window, and surfaces in /healthz as a degradation that distinguishes
-"error budget burning fast" from "momentary blip — within budget" (a
-warn, never a degradation).  Recovery resolves the alert.
-
-The reference's engine also claims one fleet episode over the
-supervisor channel per alert (``channel_path``); fleet episodes belong
-to the process fleet (ROADMAP A7), so here a ``channel_path`` raises.
+A firing alert claims/joins ONE fleet episode over the supervisor
+channel (obs.xproc ``ensure_episode``), records a durable event into
+the tsdb (the flush happens at fire time, exactly when the process may
+die next), enriches the flight-recorder dump with the budget ledger and
+the offending series' recent window, and surfaces in /healthz as a
+degradation that distinguishes "error budget burning fast" from
+"momentary blip — within budget" (a warn, never a degradation).
+Recovery resolves the alert and releases an episode this engine
+claimed.
 
 Everything rides the recorder's injected clock, so tests script the
 error rate and pin the firing tick exactly.
@@ -171,7 +170,8 @@ class _SpecState:
     last_bad: bool = False
     firing: str | None = None        # rule name while an alert is open
     severity: str | None = None
-    episode: str | None = None       # the fleet's (A7); None here
+    episode: str | None = None
+    episode_claimed: bool = False
     alerts_total: int = 0
     worst_burn: float = 0.0
 
@@ -185,11 +185,6 @@ class SloEngine:
                  budget_frac: float | None = None,
                  budget_window_s: float | None = None,
                  channel_path: str | None = None, flightrec=None):
-        if channel_path:
-            raise NotImplementedError(
-                "SloEngine(channel_path=...): fleet episodes are not "
-                "ported to heatmap_tpu_torch yet (ROADMAP A7); unset "
-                "HEATMAP_SUPERVISOR_CHANNEL")
         self.rec = recorder
         self.tag = str(tag or recorder.tag)
         self.budget_frac = float(
@@ -203,6 +198,7 @@ class SloEngine:
         self.rules = tuple(rules if rules is not None
                            else default_rules(self.budget_window_s,
                                               recorder.scrape_s))
+        self.channel_path = channel_path
         self.flightrec = flightrec
         maxn = max(8, int(math.ceil(
             self.budget_window_s / max(recorder.scrape_s, 1e-6))) + 1)
@@ -369,6 +365,17 @@ class SloEngine:
         if self._m_alerts is not None:
             self._m_alerts.labels(slo=spec.name,
                                   severity=rule.severity).inc()
+        eid = None
+        if self.channel_path:
+            from heatmap_tpu_torch.obs.xproc import ensure_episode
+
+            ep = ensure_episode(self.channel_path, self.tag,
+                                f"slo burn: {spec.name} "
+                                f"{burn_short:.1f}x/{burn_long:.1f}x")
+            eid = ep.get("episode_id") or None
+            st.episode = eid
+            st.episode_claimed = bool(
+                eid and ep.get("origin") == self.tag)
         ev = {"t": t, "kind": "slo_alert", "slo": spec.name,
               "rule": rule.name, "severity": rule.severity,
               "burn_short": round(burn_short, 3),
@@ -376,22 +383,31 @@ class SloEngine:
               "value": st.last_value,
               "threshold": spec.threshold,
               "budget": self.budget(spec.name)}
+        if eid:
+            ev["episode"] = eid
         self.rec.record_event(ev)
         self.rec.flush()        # durable NOW — this is the incident
         if self.flightrec is not None:
-            # a fresh recorder's once-only dump, enriched by the "slo"
-            # source registered at construction (budget ledger +
-            # offending series window)
+            # per-episode once-only dump, enriched by the "slo" source
+            # registered at construction (budget ledger + offending
+            # series window)
             self.flightrec.spawn().dump(
-                f"slo-burn:{spec.name}:{rule.name}")
+                f"slo-burn:{spec.name}:{rule.name}", episode_id=eid)
 
     def _resolve(self, spec: SloSpec, st: _SpecState,
                  t: float) -> None:
         ev = {"t": t, "kind": "slo_resolve", "slo": spec.name,
               "rule": st.firing, "budget": self.budget(spec.name)}
+        if st.episode:
+            ev["episode"] = st.episode
         self.rec.record_event(ev)
         self.rec.flush()
+        if st.episode_claimed and self.channel_path:
+            from heatmap_tpu_torch.obs.xproc import clear_episode
+
+            clear_episode(self.channel_path, origin=self.tag)
         st.firing = st.severity = None
+        st.episode, st.episode_claimed = None, False
 
     # --------------------------------------------------------- surfaces
     def budget(self, name: str) -> dict:

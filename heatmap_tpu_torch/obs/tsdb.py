@@ -27,9 +27,9 @@ made for tile data:
   healthz transitions, SLO alerts, governor adjustments, audit
   mismatches, shed/lagged bursts, retraces, and flight-recorder
   episodes merged into one ordered timeline; the fleet form NAMES
-  which member degraded first.  The governor and the audit (ROADMAP
-  A7, A6c) are not ported: their counters never appear in a port
-  member's blocks, so their event kinds never do either.
+  which member degraded first.  The governor (ROADMAP A7b) is not
+  ported: its counters never appear in a port member's blocks, so its
+  event kind never does either.
 
 Everything is gated by ``HEATMAP_TSDB=1``; knob-off, nothing here is
 imported on the hot path and no families register (tests pin the

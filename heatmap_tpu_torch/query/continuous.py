@@ -1,12 +1,11 @@
 """Continuous spatial query engine over the materialized-view stream.
 
-A copy of ``heatmap_tpu/query/continuous.py`` without the fleet member
-block (the supervisor channel it is published on is ROADMAP A7).
-*Standing* queries — register once, get pushed matches forever —
-evaluated off the view's mutation stream, in dense seq order, on the
-writer or on a replica following its feed (query.repl), so query load
-scales with serve workers: the writer carries no watcher, no index, no
-per-mutation work until a query is registered on it.
+A copy of ``heatmap_tpu/query/continuous.py``.  *Standing* queries —
+register once, get pushed matches forever — evaluated off the view's
+mutation stream, in dense seq order, on the writer or on a replica
+following its feed (query.repl), so query load scales with serve
+workers: the writer carries no watcher, no index, no per-mutation work
+until a query is registered on it.
 
 Query menu (one registered spec each, compiled once by query.geom):
 
@@ -969,3 +968,20 @@ class ContinuousQueryEngine:
                               "budget": lag_budget_s, "ok": ok,
                               "registered": self.registered}},
                 not ok)
+
+    def member_block(self) -> dict:
+        """The compact ``cq`` block a fleet member snapshot publishes
+        (obs.xproc) — what obs_top --fleet renders per member."""
+        with self._lock:
+            evals = (self._c_evals.value
+                     if self._c_evals is not None else 0)
+            matches = (self._c_matches.value
+                       if self._c_matches is not None else 0)
+            return {
+                "registered": len(self._queries),
+                "evaluations": int(evals),
+                "matches": int(matches),
+                "eval_lag_s": round(self.eval_lag_s(), 3),
+                "index_cells": sum(len(g.index) + len(g.pindex)
+                                   for g in self._grids.values()),
+            }

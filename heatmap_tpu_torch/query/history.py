@@ -1,9 +1,8 @@
 """Space-time history tier: durable compacted log + time-travel queries.
 
-A copy of ``heatmap_tpu/query/history.py``.  The port's writer publishes
-no ``"dg"`` digests (the audit table is ROADMAP A6c), so its own feeds
-verify nothing here; a feed that carries them (an audited reference
-writer's) is verified as the reference verifies it.
+A copy of ``heatmap_tpu/query/history.py``.  Under ``HEATMAP_AUDIT=1`` the
+writer's feed records carry each touched window's ``"dg"`` digest, which
+the compactor verifies against its chunks, as in the reference.
 
 Without this tier serving is latest-only: eviction destroys every
 window that ages out, and the repl segment log — an ordered,
@@ -1202,9 +1201,8 @@ class HistoryCompactor:
             else 0.0
 
     def member_block(self) -> dict:
-        """The compact history block (chunks, span, lag, counts) the
-        reference's fleet member snapshot publishes; the port has no
-        member snapshot yet (the supervisor channel, ROADMAP A7)."""
+        """The compact history block a fleet member snapshot publishes
+        (obs.xproc) — what ``obs_top --fleet`` renders per member."""
         return {"chunks": self._chunks,
                 "chunk_bytes": self._chunk_bytes,
                 "covered_span_s": round(self._span_s, 3),

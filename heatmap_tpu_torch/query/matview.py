@@ -1,9 +1,6 @@
 """TileMatView — the materialized tile view the API reads instead of the Store.
 
-A copy of ``heatmap_tpu/query/matview.py`` without its audit branches
-(the per-window ``DigestTable`` of ``HEATMAP_AUDIT=1``, ROADMAP A6c): the
-view keeps no digest table and its feed records carry no ``"dg"``, as an
-unaudited reference writer's do.
+A copy of ``heatmap_tpu/query/matview.py``.
 
 One in-memory view of (grid, windowStart, cell) → tile doc, maintained
 two ways:
@@ -93,12 +90,21 @@ class _Grid:
 
 class TileMatView:
     def __init__(self, delta_log: int = 4096, pyramid_levels: int = 2,
-                 registry=None, now_fn=None, replica: bool = False):
+                 registry=None, now_fn=None, replica: bool = False,
+                 audit=None):
         self._delta_log = max(1, int(delta_log))
         self._pyramid_levels = max(0, int(pyramid_levels))
         self._now = now_fn or time.time
         self._grids: dict[str, _Grid] = {}
         self._seq = 0
+        # Integrity observatory (obs.audit, HEATMAP_AUDIT=1): an
+        # order-independent per-(grid, windowStart) content digest
+        # maintained incrementally alongside every mutation below.
+        # Observe-only: nothing reads it on the apply path.  The writer
+        # view publishes the post-apply digest of every touched window
+        # inside its repl records (``"dg"``) so replicas can verify
+        # their own applied state per seq advance.
+        self.audit_table = audit
         # Replica mode (query.repl): the view is a seq-exact FOLLOWER of
         # a writer's replication feed.  Local clock-driven eviction of
         # the LATEST window is disabled — the seq advance it implies
@@ -192,6 +198,27 @@ class TileMatView:
                 except ValueError:
                     pass
 
+    def _dg_of(self, docs) -> dict | None:
+        """{grid: {str(ws): hex-digest}} for every (grid, windowStart)
+        the docs touched, read from the audit table AFTER the applies
+        (callers hold the lock) — the writer's published truth a
+        replica verifies its own recomputation against.  None when
+        auditing is off, so feed bytes are identical to an unaudited
+        run."""
+        if self.audit_table is None:
+            return None
+        out: dict = {}
+        for d in docs:
+            grid = d.get("grid")
+            ws_dt = d.get("windowStart")
+            if not grid or not isinstance(ws_dt, dt.datetime):
+                continue
+            ws = int(ws_dt.timestamp())
+            out.setdefault(grid, {})[str(ws)] = format(
+                self.audit_table.digest(grid, ws) or 0, "016x")
+        return out or None
+
+    # ---- write side ----------------------------------------------------
     def apply_packed(self, body, meta) -> int:
         """Apply packed emit BODY rows (engine layout) — the writer-thread
         hook for the packed sink path.  Decodes with the same oracle the
@@ -220,8 +247,12 @@ class TileMatView:
             if changed:
                 self._seq = seq
                 self._cond.notify_all()
-                self._emit({"kind": "apply", "seq": seq,
-                            "docs": changed_docs})
+                rec = {"kind": "apply", "seq": seq,
+                       "docs": changed_docs}
+                dg = self._dg_of(changed_docs)
+                if dg:
+                    rec["dg"] = dg
+                self._emit(rec)
             # evict on the WRITE path too: a grid nobody polls over
             # HTTP (replica behind an LB, secondary grid of a pyramid)
             # would otherwise retain every expired window's cell docs
@@ -265,6 +296,8 @@ class TileMatView:
         if old == doc:
             return 0
         w[cid] = doc
+        if self.audit_table is not None:
+            self.audit_table.update(doc.get("grid"), ws, cid, old, doc)
         if len(g.log) == g.log.maxlen and g.log:
             g.dropped_seq = g.log[0][0]
         g.log.append((seq, ws, cid))
@@ -322,8 +355,12 @@ class TileMatView:
                         if changed:
                             self._seq = seq
                             self._cond.notify_all()
-                            self._emit({"kind": "apply", "seq": seq,
-                                        "docs": applied})
+                            rec = {"kind": "apply", "seq": seq,
+                                   "docs": applied}
+                            dg = self._dg_of(applied)
+                            if dg:
+                                rec["dg"] = dg
+                            self._emit(rec)
         if self._h_apply is not None:
             self._h_apply.observe(time.perf_counter() - t0)
         return changed
@@ -345,8 +382,12 @@ class TileMatView:
         g.log.clear()
         g.dropped_seq = seq
         self._cond.notify_all()
-        self._emit({"kind": "resync", "seq": seq, "grid": grid,
-                    "ws": ws, "docs": list(docs)})
+        rec = {"kind": "resync", "seq": seq, "grid": grid,
+               "ws": ws, "docs": list(docs)}
+        dg = self._dg_of(docs)
+        if dg:
+            rec["dg"] = dg
+        self._emit(rec)
         return max(1, len(docs))
 
     def _drop_all_windows(self, grid: str, g: _Grid) -> None:
@@ -355,6 +396,8 @@ class TileMatView:
             del g.meta[ws]
             if g.pyramid is not None:
                 g.pyramid.drop_window(ws)
+            if self.audit_table is not None:
+                self.audit_table.drop_window(grid, ws)
 
     def _install_window(self, grid: str, g: _Grid, ws: int,
                         docs) -> None:
@@ -365,6 +408,8 @@ class TileMatView:
         w = g.windows[ws] = {}
         for d in docs:
             w[d["cellId"]] = d
+            if self.audit_table is not None:
+                self.audit_table.update(grid, ws, d["cellId"], None, d)
             if g.pyramid is not None:
                 try:
                     g.pyramid.apply(ws, int(d["cellId"], 16), None, d)
@@ -391,7 +436,11 @@ class TileMatView:
             if applied:
                 self._seq = seq
                 self._cond.notify_all()
-                self._emit({"kind": "apply", "seq": seq, "docs": applied})
+                rec = {"kind": "apply", "seq": seq, "docs": applied}
+                dg = self._dg_of(applied)
+                if dg:
+                    rec["dg"] = dg
+                self._emit(rec)
             return len(applied)
 
     def publish_anomalies(self, grid: str, events: list) -> None:
@@ -450,6 +499,8 @@ class TileMatView:
                             del g.meta[ws]
                             if g.pyramid is not None:
                                 g.pyramid.drop_window(ws)
+                            if self.audit_table is not None:
+                                self.audit_table.drop_window(grid, ws)
                     g.window_seq = g.mod_seq = seq
                     changed = 1
             elif kind == "resync":
@@ -482,6 +533,8 @@ class TileMatView:
         representations."""
         with self._cond:
             self._grids.clear()
+            if self.audit_table is not None:
+                self.audit_table.clear()
             seq = int(state.get("seq", 0))
             for grid, gs in (state.get("grids") or {}).items():
                 g = self._grid(grid)
@@ -501,6 +554,9 @@ class TileMatView:
                             else None)
                     for cid, doc in cells.items():
                         w[cid] = doc
+                        if self.audit_table is not None:
+                            self.audit_table.update(grid, ws, cid,
+                                                    None, doc)
                         if g.pyramid is not None:
                             try:
                                 g.pyramid.apply(ws, int(cid, 16),
@@ -524,7 +580,8 @@ class TileMatView:
                         stale_ts: float | None = None) -> bool:
         """History cold-start backfill (query/history.py): install one
         PRE-LATEST window's docs without advancing seq, firing the
-        replication hook/watchers — the window is historical context, not a new mutation, so the
+        replication hook/watchers, or touching the audit table — the
+        window is historical context, not a new mutation, so the
         replica's seq/ETag/delta stream stays byte-interchangeable
         with the writer's.  Refused (False) when the grid is unknown
         or empty, the window already exists, or ``ws`` would become
@@ -610,6 +667,8 @@ class TileMatView:
             del g.meta[ws]
             if g.pyramid is not None:
                 g.pyramid.drop_window(ws)
+            if self.audit_table is not None:
+                self.audit_table.drop_window(grid, ws)
         if dead and g.latest_ws() != latest_before:
             seq = self._advance()
             g.window_seq = g.mod_seq = seq
@@ -629,6 +688,15 @@ class TileMatView:
         with self._lock:
             g = self._grids.get(grid)
             return g.latest_ws() if g is not None else None
+
+    def audit_digest(self, grid: str, ws: int) -> int | None:
+        """This view's own content digest for (grid, windowStart) —
+        what a replica compares against the writer's published value
+        (obs.audit.AuditState.verify_record).  None when auditing is
+        off or the window is absent."""
+        if self.audit_table is None:
+            return None
+        return self.audit_table.digest(grid, int(ws))
 
     def etag(self, grid: str, res: int | None = None) -> str:
         """Strong ETag for the grid's current latest-window view (and

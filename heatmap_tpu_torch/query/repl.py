@@ -1,11 +1,8 @@
 """Delta-log view replication: writer-published feed, zero-store-read replicas.
 
-A copy of ``heatmap_tpu/query/repl.py`` without its delivery-lineage
-(``HEATMAP_DELIVERY`` publish stamps, ``pt``) and integrity-audit
-(per-record ``"dg"`` verification) branches: both belong to
-integrity and delivery (ROADMAP A6c), ``load_config`` refuses ``HEATMAP_DELIVERY``,
-and the port's feed bytes equal an unaudited reference writer's with the
-knob off.
+A copy of ``heatmap_tpu/query/repl.py``.  With ``HEATMAP_DELIVERY`` off
+and no audit table on the view, the port's feed bytes equal an
+unaudited reference writer's.
 
 The materialized view decouples reads from the Store for ONE process; a
 serve-only replica still rebuilt its view by store-scan polling
@@ -79,6 +76,7 @@ import threading
 import time
 import uuid
 
+from heatmap_tpu_torch.obs.delivery import delivery_enabled
 from heatmap_tpu_torch.obs.xproc import atomic_write_json, fleet_max_age_s
 
 log = logging.getLogger(__name__)
@@ -121,9 +119,20 @@ class DeltaLogPublisher:
 
     def __init__(self, view, feed_dir: str, seg_bytes: int = 1 << 22,
                  segments: int = 4, flush_s: float = 0.05,
-                 registry=None, start: bool = True, hist=None):
+                 registry=None, start: bool = True, hist=None,
+                 clock=time.time, event_age_fn=None):
         self.view = view
         self.dir = feed_dir
+        # delivery lineage (obs.delivery, HEATMAP_DELIVERY=1): stamp a
+        # writer-clock triple pt=[enqueue, publish, event_age] into each
+        # feed record so replicas can telescope delivered freshness back
+        # to the event.  Knob-gated at construction: with it off the
+        # hook stays the deque's bare append and flush writes the exact
+        # bytes an uninstrumented build would — the feed is pinned
+        # byte-identical by the delivery tests.
+        self.clock = clock
+        self._event_age_fn = event_age_fn
+        self._delivery = delivery_enabled()
         # space-time history hand-off (query/history.py HistoryLog,
         # HEATMAP_HIST_DIR): with it, rotated segments are RETIRED into
         # the durable log instead of deleted, and every snapshot is
@@ -181,7 +190,8 @@ class DeltaLogPublisher:
         # a permanent seq gap no follower could cross.  With this order
         # a mutation is in the snapshot, the queue, or both (overlap is
         # idempotent: followers skip records ≤ their seq).
-        view.set_hook(self._q.append)
+        view.set_hook(self._enqueue if self._delivery
+                      else self._q.append)
         with self._io_lock:
             self._write_snapshot()
             self._open_segment(self._last_seq + 1)
@@ -194,6 +204,20 @@ class DeltaLogPublisher:
     # the hook target is the deque's own append (atomic, lock-free, and
     # safe under the view lock); everything below runs on the publisher
     # thread or the closing caller
+
+    def _enqueue(self, rec: dict) -> None:
+        """Delivery-knob hook: stamp enqueue time (and the freshness
+        lineage's newest committed event age, when wired) before the
+        append.  Runs under the view lock — one clock read, one
+        optional watermark read, no I/O."""
+        rec = dict(rec)
+        rec["_eq"] = self.clock()
+        if self._event_age_fn is not None:
+            try:
+                rec["_ea"] = float(self._event_age_fn())
+            except Exception:  # noqa: BLE001 - lineage must not block
+                pass
+        self._q.append(rec)
 
     def _seg_path(self, start_seq: int) -> str:
         return os.path.join(self.dir,
@@ -277,7 +301,14 @@ class DeltaLogPublisher:
                 # feed (every follower would loop bootstrap→gap until
                 # the next rotation snapshot finally covered the hole)
                 rec = dict(self._q[0])
+                eq = rec.pop("_eq", None)
+                ea = rec.pop("_ea", 0.0)
                 rec["t"] = round(time.time(), 3)
+                if eq is not None:
+                    # full precision, no rounding: the telescoping
+                    # residual is exactly 0 only if these floats
+                    # round-trip bit-exact through the feed
+                    rec["pt"] = [eq, self.clock(), ea]
                 line = dumps(rec) + "\n"
                 if (self._fh_bytes and
                         self._fh_bytes + len(line) > self.seg_bytes):
@@ -517,11 +548,18 @@ class ReplicaViewFollower:
     never report ok-but-empty."""
 
     def __init__(self, view, source, poll_s: float = 0.2,
-                 registry=None, clock=time.time, hist_source=None):
+                 registry=None, clock=time.time, audit=None,
+                 hist_source=None, delivery=None):
         self.view = view
         self.source = source
         self.poll_s = max(0.01, float(poll_s))
         self.clock = clock
+        # delivery lineage (obs.delivery): when the writer stamped
+        # ``pt`` into a record (HEATMAP_DELIVERY=1), hand the tracker
+        # the record's upstream stamps plus this replica's receipt and
+        # apply times — receipt is stamped once per fetched BATCH
+        # (receipt of a change, the skew anchor), apply per record.
+        self.delivery = delivery
         # space-time history cold-start backfill (query/history.py):
         # after every snapshot bootstrap, pre-snapshot windows still
         # inside their TTL are restored into the view from the chunk
@@ -532,6 +570,12 @@ class ReplicaViewFollower:
         self.hist_source = hist_source
         self._backfill_pending = False
         self._backfill_tries = 0
+        # integrity observatory (obs.audit, HEATMAP_AUDIT=1): per
+        # applied record, recompute this replica's own (grid, window)
+        # digest and verify it against the writer's published ``dg`` —
+        # a corrupted segment record or diverged replica is detected
+        # within ONE seq advance, not at the next full resync.
+        self.audit = audit
         self.epoch: str | None = None
         self.applied = 0
         self.synced = False
@@ -700,6 +744,14 @@ class ReplicaViewFollower:
                           f"re-bootstrapping")
         n = 0
         recs = self.source.records(self.epoch, self.applied, max_n)
+        if self.delivery is not None and not isinstance(recs, list):
+            recs = list(recs)
+        # receipt stamp: once per fetched batch, the moment the records
+        # are in hand — the feed_transit leg anchors to receipt of a
+        # CHANGE (the skew discipline), so every record in the batch
+        # shares this rx
+        t_rx = self.clock() if (self.delivery is not None and recs) \
+            else None
         for rec in recs:
             # feed seqs are DENSE within an epoch (every view seq
             # advance publishes exactly one record), so a gap here
@@ -720,9 +772,16 @@ class ReplicaViewFollower:
                               "re-bootstrapping from snapshot")
             self.view.replica_apply(rec)
             self.applied = max(self.applied, int(rec.get("seq", 0)))
+            if self.audit is not None:
+                self.audit.add("repl_applied")
+                self.audit.verify_record(self.view, rec)
             t = rec.get("t")
             if isinstance(t, (int, float)):
                 self._last_rec_t = t
+            if self.delivery is not None and "pt" in rec:
+                self.delivery.record_applied(
+                    int(rec.get("seq", 0)), rec.get("pt"), t_rx,
+                    self.clock())
             n += 1
             if self.c_applied is not None:
                 self.c_applied.inc()

@@ -14,16 +14,20 @@ each bind the same (host, port) with ``SO_REUSEPORT`` — the kernel
 balances accepted connections across their listen queues, so the tier
 scales past the interpreter lock without a fronting load balancer.  Each
 worker runs its own ``ReplicaViewFollower`` off the shared
-``HEATMAP_REPL_FEED``.  The parent restarts crashed workers (short
-backoff) and fans SIGTERM/SIGINT out for a clean fleet stop.
+``HEATMAP_REPL_FEED`` and, under ``HEATMAP_SUPERVISOR_CHANNEL``, publishes
+its own fleet member snapshot (tag ``serve<pid>``, ``ServeFleetMember``),
+so ``/fleet/healthz|metrics|audit|delivery`` on any worker see every
+worker, each one's digest verification included.  The parent restarts
+crashed workers (short backoff) and fans SIGTERM/SIGINT out for a clean
+fleet stop.
 
 A copy of ``heatmap_tpu/serve/__main__.py`` with two differences.  The
 parent holds the fleet's port with ``SO_REUSEPORT`` whatever the port, and
 a host without the option raises (the reference would log a warning and
 let each worker bind exclusively, so a fleet could serve on one worker
-unnoticed).  The workers publish no fleet member snapshot: that needs
-the supervisor channel (ROADMAP A7), so ``/fleet/*`` answer 503 on
-every worker.
+unnoticed).  A worker turns SIGTERM into a clean exit, so its member
+snapshot departs as a tombstone (the reference's worker dies on the
+signal, and its snapshot reads as a stale member until it ages out).
 """
 
 from __future__ import annotations
@@ -153,6 +157,10 @@ def main(argv=None) -> int:
     from heatmap_tpu_torch.sink import make_store
 
     log.info("serve core: %s", cfg.serve_core)
+    # SIGTERM (the fleet's stop) unwinds through serve_forever's cleanup,
+    # so this worker's member snapshot departs as a tombstone instead of
+    # going stale on the channel
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(0))
     store = make_store(cfg)
     try:
         serve_forever(store, cfg, host=host, port=port,

@@ -59,15 +59,49 @@ replication feed (``HEATMAP_REPL_FEED``):
   checks join ``/healthz``, and each ``/api/tiles/forecast`` horizon
   registers a scorecard after its body is built.
 
-Still cut: the delivery lineage and audit surfaces, and the fleet member
-snapshot a serve worker publishes (they need their subsystems and a
-supervisor channel, ROADMAP A6c, A7).  Their routes answer as the
-reference does when that subsystem is absent (503 with its message: the
-audit surface, the fleet) or, where the reference has no such answer, 501
-naming the ROADMAP item (``UNPORTED_ROUTES``).  No request path touches
-the device: the view holds host dicts only, the runtime's metrics come
-from the snapshot its step thread publishes at each batch end
-(``metrics_snapshot``) and from its registry's families.
+Fleet observatory (obs.fleet; served by ANY process holding the
+supervisor channel path ``HEATMAP_SUPERVISOR_CHANNEL`` — 503 without
+one):
+
+- GET /fleet/metrics → the federation exposition: every member
+  snapshot's series re-emitted with a ``proc="<tag>"`` label, fleet
+  rollups (counters summed, watermark gauges maxed, additive gauges
+  summed as ``heatmap_fleet_<name>``), fleet-level interpolated
+  quantiles over the merged histograms, per-member freshness and
+  delivered-age gauges, and the legacy ``heatmap_child_*`` gauges.
+- GET /fleet/healthz → the aggregate SLO verdict: any member degraded
+  degrades the fleet, any member down (or a supervisor that gave up)
+  downs it (HTTP 503), and a stale / corrupt / clock-skewed / vanished
+  member degrades the fleet NAMING the member.
+- GET /fleet/freshness[?n=] → the cross-process event-age
+  decomposition, member lineage contributions stitched by lineage id.
+- GET /fleet/delivery → the members' delivery blocks rolled up, the
+  worst replica named (HTTP 503 while a member is stale or vanished).
+- GET /fleet/audit → member ledgers summed and re-checked against the
+  conservation identities, and every (grid, windowStart)'s per-shard
+  digests XOR-combined against the merged-view digest.
+- GET /fleet/quality → the members' quality blocks stitched.
+
+A serve-only worker publishes its own member snapshot there
+(``ServeFleetMember``, tag ``serve<pid>``, started by ``serve_forever``),
+with a fleet-mode SLO watchdog; a runtime-attached process publishes from
+the runtime's loop.  Under ``HEATMAP_AUDIT=1`` GET /debug/audit serves this
+process's conservation ledger and digest verification state (a serve-only
+worker builds its own ``AuditState`` and view digest table, and verifies
+every applied feed record's ``"dg"``; 503 with auditing off) and its checks
+join /healthz.  GET /debug/delivery[?n=] serves this process's delivery
+lineage (the telescoping delivered-age decomposition, recent samples and
+every subscriber's write-stall state): the follower installs each applied
+record's writer stamps, the SSE pumps stamp each frame's encode, and both
+serve cores complete a sample when a subscriber's socket write returns;
+a replica with samples adds ``delivered_age_p50_ms`` to /healthz
+(``HEATMAP_SLO_DELIVERED_P50_MS``, default 2000).  With
+``HEATMAP_FLIGHTREC_DIR`` the app arms a flight recorder with its delivery
+and request sources, dumped on the first slow request.
+
+No request path touches the device: the view holds host dicts only, the
+runtime's metrics come from the snapshot its step thread publishes at each
+batch end (``metrics_snapshot``) and from its registry's families.
 
 Unlike the reference, ``serve_port=0`` binds an ephemeral port
 (``start_background`` returns the one bound).
@@ -94,22 +128,8 @@ from heatmap_tpu_torch.sink.base import Store
 
 log = logging.getLogger(__name__)
 
-# Routes of subsystems not ported yet -> (status, error body).  Where the
-# reference answers a route with 503 when its subsystem is absent, the
-# port gives that answer; the rest answer 501 naming the ROADMAP item.
-_NOT_PORTED = "not ported to heatmap_tpu_torch yet (ROADMAP {})"
-_UNPORTED = {
-    "/debug/audit": (503, "the integrity observatory needs "
-                          "HEATMAP_AUDIT=1"),
-    **{f"/fleet/{name}": (503, "fleet surfaces need a supervisor channel "
-                               "(HEATMAP_SUPERVISOR_CHANNEL)")
-       for name in ("metrics", "healthz", "freshness", "delivery", "audit",
-                    "quality")},
-    "/debug/delivery": (501, _NOT_PORTED.format(
-        "A6c, integrity and delivery")),
-}
-# every route the table above answers, for the pin in the tests
-UNPORTED_ROUTES = tuple(sorted(_UNPORTED))
+# Routes of the reference the port does not serve: none is left
+UNPORTED_ROUTES: tuple = ()
 
 
 @functools.lru_cache(maxsize=65536)
@@ -434,8 +454,15 @@ def _policy_values(runtime) -> dict:
 def _metrics_json(runtime) -> dict:
     """The /metrics.json body: the runtime's snapshot (its step thread
     publishes it at each batch end), the writer's and the source's
-    counters and the policy values, under the reference's keys."""
+    counters and the policy values, under the reference's keys, and the
+    supervisor channel's fields when one is attached (cross-process state,
+    so they report on a serve-only process too)."""
+    from heatmap_tpu_torch.obs.xproc import ENV_CHANNEL, SupervisorChannel
+
     m: dict = {}
+    chan = SupervisorChannel.metrics_from(os.environ.get(ENV_CHANNEL))
+    if chan:
+        m["supervisor"] = chan
     if runtime is None:
         return m
     m.update(runtime.metrics_snapshot())
@@ -451,17 +478,26 @@ def _metrics_text(runtime, serve_registry) -> str:
     families) is the body; with a runtime attached those families live in
     the runtime's registry already, which renders with its counters, the
     writer's and the source's as flat series and the policy info
-    series."""
+    series.  With a supervisor channel, its ``heatmap_supervisor_*``
+    series and the per-child ``heatmap_child_*`` freshness gauges join
+    either body."""
+    from heatmap_tpu_torch.obs.fleet import child_freshness_lines
     from heatmap_tpu_torch.obs.registry import _escape_label
+    from heatmap_tpu_torch.obs.xproc import (ENV_CHANNEL, SupervisorChannel,
+                                             supervisor_metrics_lines)
 
+    chan_path = os.environ.get(ENV_CHANNEL)
+    lines = supervisor_metrics_lines(
+        SupervisorChannel.metrics_from(chan_path))
+    lines.extend(child_freshness_lines(chan_path))
     if runtime is None:
-        return serve_registry.expose_text()
+        return serve_registry.expose_text(extra=lines)
     pol = _policy_values(runtime)
     labels = ",".join(
         f'{k.removeprefix("policy_")}="{_escape_label(str(v))}"'
         for k, v in pol.items())
-    lines = ["# TYPE heatmap_policy_info gauge",
-             "heatmap_policy_info{%s} 1" % labels]
+    lines.append("# TYPE heatmap_policy_info gauge")
+    lines.append("heatmap_policy_info{%s} 1" % labels)
     extra = dict(runtime.writer.counters)
     # the retries are a registry series already (heatmap_sink_retries_
     # total): a flat copy would emit the series twice
@@ -478,10 +514,11 @@ def _metrics_text(runtime, serve_registry) -> str:
 #   HEATMAP_SLO_FRESHNESS_P50_S   recent p50 emit freshness budget (60)
 #   HEATMAP_SLO_FRESHNESS_P50_MS  recent p50 end-to-end event age budget
 #                                 (10000 ms): event ts -> sink commit ack
+#   HEATMAP_SLO_RESTARTS_PER_H    supervisor failures tolerated in the
+#                                 trailing hour before degraded (4)
 # plus the runtime-introspection checks (obs.runtimeinfo):
 #   HEATMAP_SLO_RETRACES, HEATMAP_SLO_RETRACE_WINDOW_S,
 #   HEATMAP_SLO_MEM_BYTES.
-# The supervisor checks come with the process fleet (ROADMAP A7).
 def _slo(name: str, default: float) -> float:
     try:
         return float(os.environ.get(name, "") or default)
@@ -493,9 +530,9 @@ def _slo(name: str, default: float) -> float:
 
 def healthz_payload(runtime, extra_checks=None) -> tuple[dict, bool]:
     """(payload, down): SLO checks against the recent-window histogram
-    quantiles of the runtime's registry.  ok -> degraded on a budget
-    breach; down (serve 503) only when the pipeline cannot make progress
-    — a poisoned sink.
+    quantiles of the runtime's registry and the supervisor channel.  ok ->
+    degraded on a budget breach; down (serve 503) only when the pipeline
+    cannot make progress — a poisoned sink or a supervisor that gave up.
 
     ``extra_checks`` (a callable returning (checks_dict, degraded)) is
     the serve tier's contribution: the view's state and the store
@@ -549,6 +586,18 @@ def healthz_payload(runtime, extra_checks=None) -> tuple[dict, bool]:
             degraded |= not ok
         # the reference's fastpath_pinned warning: the port's runtime
         # pins no fast-path knob down (one device, no mesh or governor)
+        audit = getattr(runtime, "audit", None)
+        if audit is not None:
+            # the integrity observatory (obs.audit, HEATMAP_AUDIT=1): a
+            # ledger residual that stopped draining degrades NAMING the
+            # leaking boundary; any digest mismatch degrades naming the
+            # (grid, window, seq)
+            try:
+                ac, a_deg = audit.healthz_checks()
+                checks.update(ac)
+                degraded |= a_deg
+            except Exception:  # noqa: BLE001 - observe-only, never 500
+                log.exception("audit healthz checks failed")
 
         quality = getattr(runtime, "quality", None)
         if quality is not None:
@@ -568,6 +617,19 @@ def healthz_payload(runtime, extra_checks=None) -> tuple[dict, bool]:
         ri_checks, ri_degraded = healthz_checks(runtime)
         checks.update(ri_checks)
         degraded |= ri_degraded
+    from heatmap_tpu_torch.obs.xproc import ENV_CHANNEL, SupervisorChannel
+
+    chan = SupervisorChannel.metrics_from(os.environ.get(ENV_CHANNEL))
+    if chan:
+        budget = _slo("HEATMAP_SLO_RESTARTS_PER_H", 4.0)
+        n = chan.get("recent_failures", 0)
+        ok = n <= budget
+        checks["supervisor_restarts_1h"] = {"value": n, "budget": budget,
+                                            "ok": ok}
+        degraded |= not ok
+        if chan.get("gave_up"):
+            checks["supervisor"] = {"value": "gave_up", "ok": False}
+            down = True
     status = "down" if down else ("degraded" if degraded else "ok")
     return {"ok": not down, "status": status, "checks": checks}, down
 
@@ -846,6 +908,16 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
 
     serve_reg = runtime.registry if runtime is not None else Registry()
     stats = _ServeStats(serve_reg)
+    # ---- the delivery lineage (obs.delivery) ---------------------------
+    # Read-path lineage to the subscriber socket: the follower installs
+    # each applied record's writer stamps + local receipt/apply, the SSE
+    # pumps stamp encode, and the subscriber generators complete
+    # end-to-end delivered samples (/debug/delivery, /fleet/delivery,
+    # heatmap_delivered_age_seconds{bound=}).
+    from heatmap_tpu_torch.obs.delivery import (DeliveryTracker,
+                                                ENV_SLO_DELIVERED_P50_MS)
+
+    delivery = DeliveryTracker(registry=serve_reg)
     view = getattr(runtime, "matview", None) if runtime is not None else None
     refresher = None
     follower = None
@@ -868,13 +940,31 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
     elif repl_feed.startswith("http://") \
             or repl_feed.startswith("https://"):
         hist_src = histmod.HttpHistorySource(repl_feed)
+    # the integrity observatory (obs.audit, HEATMAP_AUDIT=1): with a
+    # runtime attached its AuditState is reused (same registry); a
+    # serve-only worker builds its own — the replica half that verifies
+    # every applied record's published window digest against its own
+    # recomputed state and serves /debug/audit
+    serve_audit = (getattr(runtime, "audit", None)
+                   if runtime is not None else None)
+    if runtime is None and cfg.audit:
+        from heatmap_tpu_torch.obs.audit import AuditState
+
+        serve_audit = AuditState(serve_reg, tag=f"serve{os.getpid()}",
+                                 settle_s=cfg.audit_settle_s)
     if view is None and cfg.query_view:
         from heatmap_tpu_torch.query import StoreViewRefresher, TileMatView
 
+        view_audit = None
+        if cfg.audit and runtime is None:
+            from heatmap_tpu_torch.obs.audit import DigestTable
+
+            view_audit = DigestTable()
         view = TileMatView(delta_log=cfg.delta_log,
                            pyramid_levels=cfg.pyramid_levels,
                            registry=serve_reg,
-                           replica=bool(repl_feed))
+                           replica=bool(repl_feed),
+                           audit=view_audit)
         refresher = StoreViewRefresher(store, view,
                                        poll_s=cfg.view_poll_ms / 1e3,
                                        registry=serve_reg)
@@ -892,7 +982,9 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                 view, feed_source(repl_feed),
                 poll_s=cfg.repl_poll_ms / 1e3,
                 registry=serve_reg,
-                hist_source=hist_src if cfg.hist_backfill else None)
+                audit=serve_audit,
+                hist_source=hist_src if cfg.hist_backfill else None,
+                delivery=delivery)
             follower.start()
     # Continuous spatial query engine (query.continuous): standing
     # bbox/polygon/topk/geofence/threshold/anomaly subscriptions over
@@ -922,6 +1014,8 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
     # creates the publisher; HEATMAP_REPL_DIR on a serve process only
     # re-exposes the feed at /api/repl/*.
     hist_at_cache: dict = {}
+    if serve_audit is not None and runtime is None:
+        serve_audit.attach(view=view, follower=follower)
     sse_max = cfg.sse_max_clients
     sse_heartbeat = cfg.sse_heartbeat_s
     sse_admit_lock = threading.Lock()
@@ -969,6 +1063,17 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
     slow_ring = _RequestRing(
         capacity=64,
         jsonl_path=os.environ.get("HEATMAP_SLOWREQ_JSONL") or None)
+    # one flight-record dump on the FIRST slow request per process (the
+    # recorder's once-only dump bounds the cost), with the delivery
+    # lineage and the request ring as sources; the serve-only SLO engine
+    # dumps through it too
+    from heatmap_tpu_torch.obs import flightrec as flightrec_mod
+
+    flightrec = flightrec_mod.from_env()
+    if flightrec is not None:
+        flightrec.add_source("delivery", delivery.snapshot)
+        flightrec.add_source("requests",
+                             lambda: span_ring.recent(64))
 
     def _commit_span(span: _Span) -> None:
         rec = span.to_dict()
@@ -976,6 +1081,9 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
         if slowreq_ms > 0 and rec["total_ms"] >= slowreq_ms:
             stats.slow_requests.labels(endpoint=span.endpoint).inc()
             slow_ring.record(rec)
+            if flightrec is not None:
+                flightrec.dump(f"slow request {span.endpoint} "
+                               f"{rec['total_ms']:.0f}ms")
     max_inflight = cfg.serve_max_inflight
     admit_sem = (threading.BoundedSemaphore(max_inflight)
                  if max_inflight > 0 else None)
@@ -1056,6 +1164,24 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
 
     boot_nonce = uuid.uuid4().hex[:8]
     seeded: set = set()
+    # the fleet aggregator (obs.fleet), built lazily against the current
+    # channel path: it is stateful (it remembers the member tags it has
+    # seen, so a VANISHED member degrades /fleet/healthz), so one instance
+    # an app, rebuilt only when the channel path itself changes
+    fleet_state: dict = {}
+
+    def _fleet_agg():
+        from heatmap_tpu_torch.obs.xproc import ENV_CHANNEL
+
+        chan_path = os.environ.get(ENV_CHANNEL)
+        if not chan_path:
+            return None
+        if fleet_state.get("path") != chan_path:
+            from heatmap_tpu_torch.obs.fleet import FleetAggregator
+
+            fleet_state["path"] = chan_path
+            fleet_state["agg"] = FleetAggregator(chan_path)
+        return fleet_state["agg"]
 
     # compaction_status is a chunk/log directory scan; /healthz probes
     # must not each pay it — one short memo serves them
@@ -1087,6 +1213,12 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
             h = refresher.health()
             checks["view_catchup"] = h
             degraded |= not h["ok"]
+        if serve_audit is not None and runtime is None:
+            # serve-only audit verdicts (a runtime-attached process merges
+            # its AuditState inside healthz_payload)
+            ac, a_degraded = serve_audit.healthz_checks()
+            checks.update(ac)
+            degraded |= a_degraded
         if hist_dir:
             # compaction-lag SLO: rotated segments must keep turning
             # into chunks; a stalled compactor silently narrows the
@@ -1121,6 +1253,20 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
             for name, check in serve_slo.healthz_checks().items():
                 checks[name] = check
                 degraded |= not check.get("ok", True)
+        if follower is not None:
+            # the delivered-freshness SLO: the age a subscriber socket
+            # actually receives, evaluated only where samples exist (a
+            # replica without SSE subscribers has none to breach)
+            dsum = delivery.summary()
+            if dsum.get("count"):
+                budget_ms = _slo(ENV_SLO_DELIVERED_P50_MS, 2000.0)
+                p50_ms = dsum["age_p50_s"] * 1e3
+                ok = p50_ms <= budget_ms
+                checks["delivered_age_p50_ms"] = {
+                    "value": round(p50_ms, 1), "budget": budget_ms,
+                    "ok": ok,
+                    "worst_stage": dsum.get("worst_stage")}
+                degraded |= not ok
         return checks, degraded
 
     healthz = functools.partial(healthz_payload, runtime,
@@ -1152,7 +1298,8 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
             serve_tsdb, registry=serve_reg, tag=_tsdb_tag,
             budget_frac=cfg.slo_budget_frac,
             budget_window_s=cfg.slo_budget_window_s,
-            channel_path=os.environ.get(ENV_CHANNEL))
+            channel_path=os.environ.get(ENV_CHANNEL),
+            flightrec=flightrec)
         serve_tsdb.start()
     elif runtime is not None:
         serve_tsdb = getattr(runtime, "tsdb", None)
@@ -1267,7 +1414,12 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                     frame = _sse_tiles_frame(d, grid, fmt)
                     stats.sse_encodes.labels(fmt=fmt).inc()
                     last = d["seq"]
-                    chan.broadcast(frame)
+                    # the delivery lineage: one encode stamp a (channel,
+                    # seq), None when no upstream stamps cover the seq
+                    # (knob off, or a writer-fed view), and then the
+                    # frame goes out untagged, byte-identical
+                    meta = delivery.encoded(d["seq"])
+                    chan.broadcast(frame, meta=meta)
                     continue
                 # store-polling pumps must keep POLLING (nothing else
                 # advances the view), so their wait slices shorter;
@@ -1305,9 +1457,18 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                     return
                 if item is wiremod.CLOSED:
                     return
-                # the stall stamps (monotonic, on the sub) make a
-                # wedged client visible the whole time the yield below
-                # is parked in send()
+                # the delivery lineage: a Tagged frame carries the encode
+                # stamp sidecar — yield the SAME bytes object (wire
+                # unchanged) and bracket the blocking socket write so
+                # the sample completes at the subscriber boundary.  The
+                # stall stamps (monotonic, on the sub) make a wedged
+                # client visible the whole time the yield below is
+                # parked in send()
+                meta = None
+                if isinstance(item, wiremod.Tagged):
+                    meta = item.meta
+                    item = item.data
+                wb = delivery.clock()
                 with sub.cond:
                     sub.write_begin_mono = time.monotonic()
                 yield item
@@ -1315,6 +1476,8 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                     sub.write_begin_mono = None
                     sub.last_write_mono = time.monotonic()
                     sub.writes += 1
+                if meta is not None:
+                    delivery.delivered(meta, wb, delivery.clock())
                 last_beat = time.monotonic()
         return events()
 
@@ -1391,7 +1554,7 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
         if evloop:
             return evloopmod.EvloopStream(
                 chan, sub, [b"retry: 3000\n\n"] + first, on_close,
-                sse_heartbeat, sse_send_timeout)
+                sse_heartbeat, sse_send_timeout, delivery)
         # the admission slot is released in _SSEBody.close(), which the
         # WSGI server guarantees to call — a bare generator's finally
         # would never run if iteration never starts
@@ -1458,7 +1621,13 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                     frame = _cq_frames(evs)
                     stats.sse_encodes.labels(fmt="cq").inc()
                     last = evs[-1]["id"]
-                    chan.broadcast(frame)
+                    # match pushes ride the tile frames' delivery stamps:
+                    # the newest match's view seq anchors the lineage, so
+                    # alert delivery lag is measured too
+                    seqs = [ev.get("seq") for ev in evs
+                            if isinstance(ev.get("seq"), int)]
+                    meta = delivery.encoded(max(seqs)) if seqs else None
+                    chan.broadcast(frame, meta=meta)
                     continue
                 if cq_engine.get(qid) is None:
                     # expired (TTL) or deleted: tell the client not to
@@ -1489,7 +1658,7 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
         if evloop:
             return evloopmod.EvloopStream(
                 chan, sub, [b"retry: 3000\n\n"] + first, on_close,
-                sse_heartbeat, sse_send_timeout)
+                sse_heartbeat, sse_send_timeout, delivery)
         return _SSEBody(_sse_generator(sub, first), on_close)
 
     def _handle(environ, start_response):
@@ -2401,13 +2570,60 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
                 payload["since_s"] = since_s
                 body = json.dumps(payload)
                 ctype = "application/json"
-            elif path in _UNPORTED:
-                code, msg = _UNPORTED[path]
-                start_response(
-                    "503 Service Unavailable" if code == 503
-                    else "501 Not Implemented",
-                    [("Content-Type", "application/json")])
-                return [json.dumps({"error": msg}).encode()]
+            elif path.startswith("/fleet/") and path[7:] in (
+                    "metrics", "healthz", "freshness", "delivery", "audit",
+                    "quality"):
+                # the fleet observatory (obs.fleet) over the member
+                # snapshots beside the supervisor channel
+                agg = _fleet_agg()
+                if agg is None:
+                    return _unavailable(
+                        "fleet surfaces need a supervisor channel "
+                        "(HEATMAP_SUPERVISOR_CHANNEL)")
+                name = path[7:]
+                ctype = "application/json"
+                if name == "metrics":
+                    body = agg.metrics_text()
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+                elif name in ("healthz", "delivery"):
+                    # a down fleet, or a delivery fleet with a stale or
+                    # vanished member, answers 503
+                    payload, down = getattr(agg, name)()
+                    if down:
+                        status = "503 Service Unavailable"
+                    body = json.dumps(payload)
+                elif name == "freshness":
+                    params = _qs_params(environ.get("QUERY_STRING", ""))
+                    body = json.dumps(
+                        agg.freshness(_qs_int(params, "n", 32, 256)))
+                else:
+                    # audit: member ledgers summed and re-checked, and the
+                    # per-shard digests XOR-combined against the merged
+                    # view's; quality: the scorecard ledgers summed, the
+                    # worst shard named
+                    body = json.dumps(getattr(agg, name)())
+            elif path == "/debug/audit":
+                # this process's integrity observatory: per-stage ledger
+                # counts, boundary residuals (worst and leaking named),
+                # digest verification state (obs.audit)
+                if serve_audit is None:
+                    return _unavailable(
+                        "the integrity observatory needs "
+                        "HEATMAP_AUDIT=1")
+                body = json.dumps(serve_audit.snapshot())
+                ctype = "application/json"
+            elif path == "/debug/delivery":
+                # this replica's delivery lineage: the telescoping
+                # delivered-age decomposition (stage order, cross-host
+                # legs flagged), recent end-to-end samples, the
+                # stalled-feed estimate, and every subscriber's
+                # write-stall state from the fan-out hub
+                params = _qs_params(environ.get("QUERY_STRING", ""))
+                n = _qs_int(params, "n", 32, 256)
+                payload = delivery.snapshot(n)
+                payload["subscribers"] = fanout.sub_stats()
+                body = json.dumps(payload)
+                ctype = "application/json"
             else:
                 start_response("404 Not Found",
                                [("Content-Type", "text/plain")])
@@ -2503,14 +2719,28 @@ def make_wsgi_app(store: Store, cfg: Config, runtime=None):
             stats.inflight.inc(-1)
             admit_sem.release()
 
+    # the serve-only fleet member (ServeFleetMember) snapshots this
+    # registry (the runtime's own when one is attached) with this healthz
+    # verdict, so /fleet/healthz degrades on a lagging replica without
+    # scraping it, and these blocks on the same publish cadence: audit
+    # (ledger and digest state, for /fleet/audit), cq (standing queries,
+    # matches, eval lag), hist and delivery (the delivered-age summary
+    # and worst stage, for /fleet/delivery)
     app.serve_registry = serve_reg
     app.healthz_fn = healthz
     app.repl_follower = follower
+    app.audit_fn = (serve_audit.member_block
+                    if serve_audit is not None else None)
+    app.serve_audit = serve_audit
+    app.cq_fn = (cq_engine.member_block
+                 if cq_engine is not None else None)
     app.cq_engine = cq_engine
+    app.delivery_fn = delivery.member_block
+    app.delivery = delivery
 
-    # the history block the reference's fleet member snapshot publishes
-    # (chunks, covered span, compaction lag, backfills); serve workers
-    # derive it from the store's files since they run no compactor
+    # the history block: chunks, covered span, compaction lag,
+    # backfills; serve workers derive it from the store's files since
+    # they run no compactor
     def _hist_block():
         out: dict = {}
         if hist_dir:
@@ -2640,15 +2870,136 @@ def _make_http_server(store, cfg, runtime, host, port,
     return srv
 
 
+class ServeFleetMember:
+    """A serve-only worker's fleet membership (obs.fleet): a daemon
+    thread that publishes this process's member snapshot —
+    ``role="serve"``, the app registry's exposition text, the channel
+    /healthz verdict — next to the supervisor channel every
+    ``HEATMAP_FLEET_PUBLISH_S``, plus an :class:`SloWatchdog` in fleet
+    mode so the worker follows episode broadcasts with a correlated
+    flight-recorder dump even though it has no runtime.  The
+    runtime-attached process publishes itself (stream/runtime.py) —
+    start this only when ``runtime is None``."""
+
+    def __init__(self, serve_registry, channel_path: str,
+                 tag: str | None = None, healthz_fn=None,
+                 audit_fn=None, cq_fn=None, hist_fn=None,
+                 delivery_fn=None):
+        from heatmap_tpu_torch.obs.xproc import ENV_FLEET_TAG
+
+        self.registry = serve_registry
+        self.channel_path = channel_path
+        # the app's healthz closure carries the serve-tier checks
+        # (replication sync/lag) the bare payload can't see
+        self.healthz_fn = healthz_fn or (lambda: healthz_payload(None))
+        # the app's audit closure (obs.audit member block) when
+        # HEATMAP_AUDIT=1 — /fleet/audit stitches it
+        self.audit_fn = audit_fn
+        # the app's continuous-query closure (standing queries /
+        # matches / eval lag) — obs_top --fleet renders it
+        self.cq_fn = cq_fn
+        # the app's space-time history closure (chunks / span /
+        # compaction lag / backfills) — obs_top --fleet renders it
+        self.hist_fn = hist_fn
+        # the app's delivery-lineage closure (obs.delivery member
+        # block: delivered-age quantiles, per-stage p50s, worst stage)
+        # — /fleet/delivery names the worst replica from these
+        self.delivery_fn = delivery_fn
+        # HEATMAP_FLEET_TAG names the RUNTIME member (stream/runtime.py
+        # adopts it verbatim when single-process), so a serve worker
+        # composes with it rather than adopting it — otherwise a serve
+        # worker and a runtime sharing the channel and env would
+        # overwrite each other's member file
+        env_tag = os.environ.get(ENV_FLEET_TAG)
+        self.tag = tag or (f"{env_tag}-serve{os.getpid()}" if env_tag
+                           else f"serve{os.getpid()}")
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.watchdog = None
+
+    @classmethod
+    def from_env(cls, app) -> "ServeFleetMember | None":
+        """Build-and-start against the app's registry; None without a
+        channel or with publishing disabled (HEATMAP_FLEET_PUBLISH_S=0)."""
+        from heatmap_tpu_torch.obs import ENV_CHANNEL
+        from heatmap_tpu_torch.obs.xproc import fleet_publish_s
+
+        chan_path = os.environ.get(ENV_CHANNEL)
+        reg = getattr(app, "serve_registry", None)
+        if not chan_path or reg is None or fleet_publish_s() <= 0:
+            return None
+        member = cls(reg, chan_path,
+                     healthz_fn=getattr(app, "healthz_fn", None),
+                     audit_fn=getattr(app, "audit_fn", None),
+                     cq_fn=getattr(app, "cq_fn", None),
+                     hist_fn=getattr(app, "hist_fn", None),
+                     delivery_fn=getattr(app, "delivery_fn", None))
+        member.start()
+        return member
+
+    def start(self) -> None:
+        from heatmap_tpu_torch.obs.flightrec import from_env as flightrec_env
+        from heatmap_tpu_torch.obs.runtimeinfo import SloWatchdog
+
+        self.publish()  # join the fleet now, not a cadence later
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="serve-fleet-member")
+        self._thread.start()
+        self.watchdog = SloWatchdog(None, channel_path=self.channel_path,
+                                    tag=self.tag,
+                                    flightrec=flightrec_env())
+        self.watchdog.start()
+
+    def publish(self, left: bool = False) -> None:
+        from heatmap_tpu_torch.obs.xproc import publish_member_snapshot
+
+        try:
+            payload, _down = self.healthz_fn()
+            publish_member_snapshot(
+                self.channel_path, self.tag, role="serve",
+                metrics_text=self.registry.expose_text(),
+                healthz=payload,
+                audit=self.audit_fn() if self.audit_fn else None,
+                cq=self.cq_fn() if self.cq_fn else None,
+                hist=self.hist_fn() if self.hist_fn else None,
+                delivery=self.delivery_fn() if self.delivery_fn else None,
+                left=left)
+        except Exception:  # noqa: BLE001 - telemetry never kills serving
+            log.warning("serve fleet snapshot publish failed",
+                        exc_info=True)
+
+    def _run(self) -> None:
+        from heatmap_tpu_torch.obs.xproc import fleet_publish_s
+
+        while not self._stop.wait(max(0.05, fleet_publish_s())):
+            self.publish()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+        # departure tombstone: a worker taken out of the fleet on
+        # purpose must not degrade /fleet/healthz as "stale"
+        self.publish(left=True)
+
+
 def serve_forever(store: Store, cfg: Config, runtime=None,
                   host: str | None = None, port: int | None = None,
                   reuse_port: bool = False):
     httpd = _make_http_server(store, cfg, runtime, host, port,
                               reuse_port=reuse_port)
+    # serve-only workers join the fleet observatory themselves; a
+    # runtime-attached process already publishes on its step loop
+    member = (ServeFleetMember.from_env(httpd.get_app())
+              if runtime is None else None)
     log.info("serving on http://%s:%d/", *httpd.server_address)
     try:
         httpd.serve_forever()
     finally:
+        if member is not None:
+            member.stop()
         httpd.get_app().close()
         httpd.server_close()
 

@@ -2,10 +2,10 @@
 hosting the SAME WSGI app wsgiref does — selected by
 ``HEATMAP_SERVE_CORE=epoll`` — with single-encode zero-copy SSE fan-out.
 
-A copy of ``heatmap_tpu/serve/evloop.py`` without the delivery-lineage
-brackets (ROADMAP A6c).  Unlike the reference, a listener that cannot set
-``SO_REUSEPORT`` when asked to raises instead of binding exclusively: a
-``--workers`` fleet never quietly serves on one worker.
+A copy of ``heatmap_tpu/serve/evloop.py``.  Unlike the reference, a
+listener that cannot set ``SO_REUSEPORT`` when asked to raises instead of
+binding exclusively: a ``--workers`` fleet never quietly serves on one
+worker.
 
 Why it exists: the wsgiref core spends a thread per request and a parked
 writer thread per SSE subscriber, a thread-count wall between the serve
@@ -38,7 +38,10 @@ Semantics carried over unchanged from the thread core:
   whole time before the shed;
 - a subscriber whose in-flight frame write stalls longer than
   ``HEATMAP_SSE_SEND_TIMEOUT_S`` is dropped (the thread core's socket
-  send timeout, without the parked thread).
+  send timeout, without the parked thread);
+- delivery lineage (obs.delivery): ``encoded()``/``delivered()``
+  bracket the loop's write completion per subscriber, residual still
+  identically 0.
 """
 
 from __future__ import annotations
@@ -79,16 +82,17 @@ class EvloopStream:
     channel ring at (cursor, offset)."""
 
     __slots__ = ("chan", "sub", "first", "on_close", "heartbeat_s",
-                 "send_timeout_s")
+                 "send_timeout_s", "delivery")
 
     def __init__(self, chan, sub, first, on_close, heartbeat_s,
-                 send_timeout_s):
+                 send_timeout_s, delivery):
         self.chan = chan
         self.sub = sub
         self.first = list(first)
         self.on_close = on_close
         self.heartbeat_s = heartbeat_s
         self.send_timeout_s = send_timeout_s
+        self.delivery = delivery
 
 
 class _Conn:
@@ -96,7 +100,8 @@ class _Conn:
     HANDLE (pool) -> WRITE (drain at offset) -> close, or -> SSE
     streaming for stream endpoints."""
 
-    __slots__ = ("sock", "addr", "rbuf", "out", "off", "sse", "in_frame",
+    __slots__ = ("sock", "addr", "rbuf", "out", "off", "sse",
+                 "frame_meta", "frame_wb", "in_frame",
                  "last_beat", "closing", "registered", "events",
                  "handling")
 
@@ -109,6 +114,9 @@ class _Conn:
         self.out: collections.deque = collections.deque()
         self.off = 0
         self.sse: EvloopStream | None = None
+        # delivery bracket for the in-flight ring frame
+        self.frame_meta = None
+        self.frame_wb = 0.0
         self.in_frame = False
         self.last_beat = 0.0
         self.closing = False
@@ -550,11 +558,17 @@ class EventLoopServer:
         if item is wiremod.CLOSED:
             conn.out.append(_EndStream())
             return True
+        meta = None
+        if isinstance(item, wiremod.Tagged):
+            meta = item.meta
+            item = item.data
         # the SAME bytes object every other subscriber writes — the
         # zero-copy invariant; (cursor, offset) is this subscriber's
         # whole pending state
         conn.out.append(item)
         conn.in_frame = True
+        conn.frame_meta = meta
+        conn.frame_wb = s.delivery.clock()
         now = time.monotonic()
         with sub.cond:
             sub.write_begin_mono = now
@@ -572,6 +586,10 @@ class EventLoopServer:
         sub.cursor += 1
         sub.offset = 0
         conn.last_beat = now
+        if conn.frame_meta is not None:
+            s.delivery.delivered(conn.frame_meta, conn.frame_wb,
+                                 s.delivery.clock())
+            conn.frame_meta = None
 
     # ------------------------------------------------------------- tick
     def _pump_sse(self, conn: _Conn) -> None:

@@ -1,10 +1,10 @@
 """Binary tile/delta wire protocol + coalesced SSE fan-out.
 
-A copy of ``heatmap_tpu/serve/wire.py`` without the delivery lineage
-sidecar (``Tagged`` frames, ROADMAP A6c) and the per-subscriber
-``sub_stats`` of ``/debug/delivery``.  The serve tier's JSON wire format
-is ~10x the entropy of the data it carries: every feature repeats the
-property keys and ships a 7-vertex polygon of ~15-significant-digit coordinate strings
+A copy of ``heatmap_tpu/serve/wire.py``, with the delivery-lineage
+sidecar (``Tagged`` frames) and the per-subscriber ``sub_stats`` of
+``/debug/delivery``.  The serve tier's JSON wire format is ~10x the
+entropy of the data it carries: every feature repeats the property keys
+and ships a 7-vertex polygon of ~15-significant-digit coordinate strings
 that are a PURE FUNCTION of the cell id.  This module defines the
 compact columnar frame the read tier negotiates instead (fixed-point
 columnar space-time tile encodings), one schema shared by
@@ -620,6 +620,20 @@ LAGGED = Lagged()
 CLOSED = Closed()
 
 
+class Tagged:
+    """A frame with a delivery-lineage sidecar: ``data`` is the exact
+    bytes a plain broadcast would carry (the subscriber generator
+    yields the SAME object, so the wire is byte-identical), ``meta``
+    is the per-(channel, seq) encode stamp the generator completes
+    into an end-to-end delivered sample (obs.delivery)."""
+
+    __slots__ = ("data", "meta")
+
+    def __init__(self, data: bytes, meta):
+        self.data = data
+        self.meta = meta
+
+
 class _Sub:
     __slots__ = ("cond", "q", "lagged", "closed",
                  "write_begin_mono", "last_write_mono", "writes")
@@ -659,8 +673,8 @@ class _EvSub:
     shared frame ring) + ``offset`` (bytes of the in-flight frame
     already written) — two integers, which is what makes fan-out
     memory O(channels) instead of O(subscribers).  The stall/lag
-    bookkeeping mirrors :class:`_Sub` so the write-stall gauge reads
-    both kinds identically."""
+    bookkeeping mirrors :class:`_Sub` so ``sub_stats`` and the
+    write-stall gauge read both kinds identically."""
 
     __slots__ = ("cond", "cursor", "offset", "lagged", "closed",
                  "write_begin_mono", "last_write_mono", "writes")
@@ -713,18 +727,22 @@ class Channel:
                 self.hub._channels.pop(self.key)
             return True
 
-    def broadcast(self, data: bytes) -> None:
+    def broadcast(self, data: bytes, meta=None) -> None:
         """Push one encoded frame to every subscriber.  A full queue
         means the subscriber stopped draining: it is marked lagged,
         its backlog dropped, and a LAGGED sentinel queued — the
-        broadcaster itself NEVER blocks on a slow client."""
+        broadcaster itself NEVER blocks on a slow client.  With
+        ``meta`` (a delivery-lineage encode stamp), the frame rides as
+        a :class:`Tagged` wrapper around the SAME bytes object — the
+        subscriber generator unwraps it, so wire bytes are unchanged."""
+        item = Tagged(data, meta) if meta is not None else data
         with self.hub._lock:
             subs = list(self.subs)
             had_ev = bool(self.ev_subs)
             if had_ev:
                 # ONE shared append, regardless of subscriber count;
                 # trimming past the bound is what sheds laggards
-                self.ring.append(data)
+                self.ring.append(item)
                 self.next_idx += 1
                 while len(self.ring) > self.hub.depth:
                     self.ring.popleft()
@@ -744,7 +762,7 @@ class Channel:
                     if self.hub.on_lagged is not None:
                         self.hub.on_lagged()
                 else:
-                    s.q.append(data)
+                    s.q.append(item)
                     hw = max(hw, len(s.q))
                 s.cond.notify()
         if self.hub.hw_gauge is not None and hw > self.hub.hw_gauge.value:
@@ -861,6 +879,46 @@ class FanoutHub:
         ``heatmap_sse_fanout_retained_frames`` gauge)."""
         with self._lock:
             return sum(len(c.ring) for c in self._channels.values())
+
+    def sub_stats(self, now_mono: float | None = None) -> list:
+        """Per-subscriber delivery state across every live channel:
+        queue depth, lag flag, completed write count, and the current
+        write-stall age — how long the subscriber's in-flight socket
+        write has been blocked (0 when none is in flight).  The wedged
+        client's tell: its stall age climbs for the full send-timeout
+        window while everyone else's stays ~0, BEFORE lag shedding
+        fires."""
+        if now_mono is None:
+            now_mono = time.monotonic()
+        out = []
+        with self._lock:
+            chans = [(k, list(c.subs),
+                      [(s, c.next_idx) for s in c.ev_subs])
+                     for k, c in self._channels.items()]
+        for key, subs, ev in chans:
+            for s in subs:
+                with s.cond:
+                    out.append({
+                        "key": list(key) if isinstance(key, tuple)
+                        else key,
+                        "queue": len(s.q),
+                        "lagged": s.lagged,
+                        "writes": s.writes,
+                        "stall_s": round(s.write_stall_s(now_mono), 6),
+                    })
+            for s, head in ev:
+                with s.cond:
+                    out.append({
+                        "key": list(key) if isinstance(key, tuple)
+                        else key,
+                        # pending = ring head minus cursor: the same
+                        # "frames not yet written" a queue length means
+                        "queue": max(0, head - s.cursor),
+                        "lagged": s.lagged,
+                        "writes": s.writes,
+                        "stall_s": round(s.write_stall_s(now_mono), 6),
+                    })
+        return out
 
     def max_write_stall_s(self) -> float:
         """The worst current write-stall age across all subscribers —

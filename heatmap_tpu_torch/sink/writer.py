@@ -1,12 +1,13 @@
 """AsyncWriter — background sink thread overlapping store I/O with compute.
 
-A copy of ``heatmap_tpu/sink/writer.py`` without its audit hooks (the
-integrity observatory is ROADMAP A6c).  With ``metrics=`` (the runtime's
+A copy of ``heatmap_tpu/sink/writer.py``.  With ``metrics=`` (the runtime's
 ``stream.metrics.Metrics``) it registers the reference's families: the
 queue depth, the retries counter and the poisoned gauge.  The materialized
 tile view (``view=``) is fed on this thread right after each tile write,
 and ``last_view_seq`` records the view's seq after each apply, which the
-runtime's lineage stamps as the batch's ``view_apply``.
+runtime's lineage stamps as the batch's ``view_apply``.  With ``audit=``
+(obs.audit.AuditState, ``HEATMAP_AUDIT=1``) this thread stamps the ledger's
+``docs_committed`` and ``docs_view_applied`` boundaries.
 
 The device step for batch N+1 runs while batch N's docs are upserted; the
 runtime's checkpoint commit waits on ``drain()`` so offsets only advance
@@ -34,8 +35,15 @@ log = logging.getLogger(__name__)
 class AsyncWriter:
     def __init__(self, store: Store, max_queue: int = 64,
                  retries: int = 3, backoff_s: float = 0.2, metrics=None,
-                 view=None):
+                 view=None, audit=None):
         self.store = store
+        # integrity-observatory ledger (obs.audit, HEATMAP_AUDIT=1):
+        # this thread stamps the sink-commit and view-apply boundaries
+        # (docs_committed / docs_view_applied) so the conservation
+        # identity closes on the writer side.  Observe-only: counting
+        # arithmetic, never on the write path's failure surface.  The
+        # runtime may also assign the attribute post-construction.
+        self.audit = audit
         # materialized tile view (query.matview): fed on THIS thread
         # right after each tile write returns from the store — i.e.
         # strictly after the rows are durable, so the query tier never
@@ -128,6 +136,8 @@ class AsyncWriter:
                     n = self._apply(kind, docs)
                     if kind.startswith("tiles"):
                         self._written_tiles += n
+                        if self.audit is not None:
+                            self.audit.add("docs_committed", n)
                         if n and self.view is not None \
                                 and not self.view.poisoned:
                             self._feed_view(kind, docs)
@@ -147,13 +157,18 @@ class AsyncWriter:
             if kind == "tiles_packed":
                 # decoded once, here, with the same oracle the portable
                 # store write path uses, so view content is exactly what
-                # a Store read-back would return
+                # a Store read-back would return, and the audit ledger
+                # counts the docs PRESENTED to the view — the predicate
+                # the store write counted, which is what makes the
+                # sink->view boundary residual meaningful
                 from heatmap_tpu_torch.sink.base import packed_tile_docs
 
                 body, meta = docs
                 docs = packed_tile_docs(body, meta)
             self.view.apply_docs(docs)
             self.last_view_seq = getattr(self.view, "seq", None)
+            if self.audit is not None:
+                self.audit.add("docs_view_applied", len(docs))
         except Exception:
             log.exception("materialized view apply failed; query tier "
                           "falls back to store renders")

@@ -124,9 +124,9 @@ class Metrics:
             labels=("reason",))
         for r in DROP_REASONS:
             self.dropped.labels(reason=r)
-        # the integrity observatory's ledger (the reference's
-        # obs.audit.AuditState, ROADMAP A6c): ``drop`` forwards every
-        # tagged drop into it once it is attached; nothing attaches it yet
+        # the integrity observatory's ledger (obs.audit.AuditState),
+        # attached by the runtime under HEATMAP_AUDIT=1: ``drop`` forwards
+        # every tagged drop into it, so the conservation identity closes
         self.audit = None
         # name -> histogram child, in observation order (snapshot() keys)
         self.spans: dict[str, object] = {}

@@ -109,8 +109,21 @@ as ``extra-quality.npz``.  The spans those read carry the reference's
 names and boundaries (poll, build, pad, transfer, pull, snap, device,
 sink_submit, prefetch, poll_fetch, poll_decode, poll_wait, infer);
 ``span_ms`` keeps the port's finer ones.
-The mesh and the process fleet of the reference runtime are not ported
-yet.
+
+With ``HEATMAP_AUDIT`` the integrity observatory (``audit``, an
+``obs.audit.AuditState``): the conservation ledger stamped at poll,
+dispatch, flush (``folded`` on the primary pair, ``docs_emitted`` with the
+fold's digest table), the writer's commit and view apply, and every
+tagged drop; the view keeps a digest table and publishes each touched
+window's digest in its feed records.  With ``HEATMAP_DELIVERY`` the feed
+publisher stamps each record's delivery lineage (``pt``), its event age
+read from this runtime's lineage.  With ``HEATMAP_SUPERVISOR_CHANNEL`` the
+runtime publishes its member snapshot beside the channel on the step loop
+(``_publish_member_snapshot``, at most every ``HEATMAP_FLEET_PUBLISH_S``,
+and at close, a clean one as a departure tombstone) and its freshness
+summary from the writer thread, and its SLO watchdog and burn-rate engine
+correlate their dumps under the fleet's episodes.  The mesh, the sharded
+runtime and the supervisor process of the reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -325,6 +338,10 @@ class MicroBatchRuntime:
         # telemetry history's directory carry it (the reference's
         # single-process runtime takes "p0")
         self._fresh_tag = os.environ.get(ENV_FLEET_TAG) or "p0"
+        # rate limits of the channel publishes (per-child freshness on the
+        # writer thread, the member snapshot on the step loop)
+        self._fresh_pub_last = 0.0
+        self._member_pub_last = 0.0
         self._n_batches = 0       # batches folded by this runtime
         self._n_polled = 0        # events those batches carried
         # emit pulls: flushes in all and by trigger, batches and bytes
@@ -392,10 +409,19 @@ class MicroBatchRuntime:
         if cfg.query_view:
             from heatmap_tpu_torch.query import TileMatView
 
+            # under HEATMAP_AUDIT the view keeps a per-window digest table
+            # and publishes each touched window's digest in its feed
+            # records ("dg")
+            view_audit = None
+            if cfg.audit:
+                from heatmap_tpu_torch.obs.audit import DigestTable
+
+                view_audit = DigestTable()
             self.matview = TileMatView(
                 delta_log=cfg.delta_log,
                 pyramid_levels=cfg.pyramid_levels,
-                registry=self.registry)
+                registry=self.registry,
+                audit=view_audit)
         # Delta-log view replication (query.repl): with HEATMAP_REPL_DIR
         # set, every view mutation the writer thread applies is
         # published to the feed, so serve-only replicas
@@ -418,12 +444,18 @@ class MicroBatchRuntime:
                     HistoryCompactor, HistoryLog)
 
                 hist_log = HistoryLog(cfg.hist_dir)
+            # the delivery lineage's event_age leg (obs.delivery): under
+            # HEATMAP_DELIVERY the publisher stamps the newest sink-acked
+            # event's age into each record at hook enqueue; late-bound,
+            # since the lineage is built below and the hook fires only
+            # once the step loop mutates the view
             self.repl_pub = DeltaLogPublisher(
                 self.matview, cfg.repl_dir,
                 seg_bytes=cfg.repl_seg_bytes,
                 segments=cfg.repl_segments,
                 registry=self.registry,
-                hist=hist_log)
+                hist=hist_log,
+                event_age_fn=lambda: self.lineage.newest_event_age_s())
             if hist_log is not None:
                 self.hist_compactor = HistoryCompactor(
                     cfg.hist_dir, feed_dir=cfg.repl_dir,
@@ -452,9 +484,24 @@ class MicroBatchRuntime:
                 n = self.quality.restore_extra(data)
                 log.info("restored quality ledger: %d pending "
                          "scorecards", n)
+        # the integrity observatory (obs.audit), under HEATMAP_AUDIT: the
+        # conservation ledger in this registry (heatmap_audit_* families),
+        # stamped at every boundary — polled and dispatched on the step
+        # thread, folded and docs_emitted (with the fold's digest table,
+        # shard "self") at each flush, docs_committed and
+        # docs_view_applied on the writer thread, and every tagged drop
+        # (Metrics.drop).  Observe-only; without the knob nothing is built
+        self.audit = None
+        if cfg.audit:
+            from heatmap_tpu_torch.obs.audit import AuditState
+
+            self.audit = AuditState(self.registry, tag=self._fresh_tag,
+                                    settle_s=cfg.audit_settle_s)
+            self.audit.attach(view=self.matview, repl_pub=self.repl_pub)
+            self.telemetry.audit = self.audit
         # the sink thread: tiles at each flush, positions at each dispatch
         self.writer = AsyncWriter(store, metrics=self.telemetry,
-                                  view=self.matview)
+                                  view=self.matview, audit=self.audit)
         self._init_introspection()
         # the metrics snapshot the step thread publishes at each batch end
         # (metrics_snapshot); HTTP threads read it under this lock
@@ -469,7 +516,9 @@ class MicroBatchRuntime:
             from heatmap_tpu_torch.obs.runtimeinfo import SloWatchdog
 
             get_sampler().ensure_started()
-            self.slo_watchdog = SloWatchdog(self)
+            # fleet mode under a supervisor channel: a degraded
+            # transition claims or joins one episode, tagged by member
+            self.slo_watchdog = SloWatchdog(self, tag=self._fresh_tag)
             self.slo_watchdog.start()
         # the telemetry time machine (obs.tsdb) and the SLO burn-rate
         # engine (obs.slo), under HEATMAP_TSDB: a sampler thread records
@@ -553,9 +602,10 @@ class MicroBatchRuntime:
                 "prefetched": len(self._prefetched),
                 "writer_poisoned": self.writer.poisoned,
             })
-            # the reference's integrity source (ROADMAP A6c): its
-            # subsystem is off here, as there by default
-            fr.add_source("audit", lambda: None)
+            # the conservation ledger's residuals and digest state ride
+            # every dump (None without HEATMAP_AUDIT)
+            fr.add_source("audit", lambda: (self.audit.snapshot()
+                                            if self.audit else None))
             # the calibration picture rides every dump, the SLO engine's
             # drift-burn dump included
             fr.add_source("quality", lambda: (self.quality.snapshot()
@@ -563,6 +613,10 @@ class MicroBatchRuntime:
             fr.add_source("runtimeinfo", lambda: self.runtimeinfo.snapshot())
             fr.add_source("stacks", lambda: get_sampler().tail(20))
             self.flightrec = fr
+            if self.audit is not None:
+                # digest-mismatch dumps correlate under the fleet episode
+                # through this recorder (obs.audit._dump_mismatch)
+                self.audit.flightrec = fr
         # pipeline-state gauges
         self._g_watermark = self.telemetry.gauge(
             "heatmap_watermark_age_seconds",
@@ -860,6 +914,10 @@ class MicroBatchRuntime:
                 return None
             cols = parse_events(polled, self._intern_p, self._intern_v)
         self.telemetry.drop("invalid", cols.n_dropped)
+        if self.audit is not None and (len(cols) or cols.n_dropped):
+            # the ledger's feed side: rows polled = rows kept + parse
+            # drops (a carried remainder was counted at its own poll)
+            self.audit.add("polled", len(cols) + cols.n_dropped)
         return cols if len(cols) else None
 
     def _next_batch(self) -> _FeedBatch | None:
@@ -1147,6 +1205,77 @@ class MicroBatchRuntime:
         if view is not None and not view.poisoned:
             self.lineage.view_applied(rec,
                                       view_seq=self.writer.last_view_seq)
+        self._publish_child_freshness()
+
+    def _publish_child_freshness(self) -> None:
+        """The per-child freshness summary beside the supervisor channel
+        (obs.xproc ``<channel>.fresh-<tag>``), when one is attached:
+        rate-limited to 1/s, on the writer thread, so the step loop pays
+        nothing."""
+        from heatmap_tpu_torch.obs.xproc import (ENV_CHANNEL,
+                                                 publish_child_freshness)
+
+        path = os.environ.get(ENV_CHANNEL)
+        if not path:
+            return
+        now = time.monotonic()
+        if now - self._fresh_pub_last < 1.0:
+            return
+        self._fresh_pub_last = now
+        publish_child_freshness(path, self._fresh_tag,
+                                self.telemetry.freshness_summary())
+
+    def _publish_member_snapshot(self, force: bool = False,
+                                 left: bool = False) -> None:
+        """This member's snapshot beside the supervisor channel (obs.xproc
+        ``<channel>.member-<tag>``, role ``runtime``): the registry's
+        exposition, the freshness summary, the /healthz verdict, a compact
+        lineage tail and the audit, history, inference and quality
+        blocks, which the fleet aggregator (obs.fleet) federates.  At most
+        every ``HEATMAP_FLEET_PUBLISH_S`` (default 2 s; 0 disables) unless
+        ``force``; ``left`` marks a departure tombstone (a clean close).
+        Runs on the step loop, guarded: telemetry never takes the
+        pipeline down."""
+        from heatmap_tpu_torch.obs.xproc import (ENV_CHANNEL,
+                                                 fleet_publish_s,
+                                                 publish_member_snapshot)
+
+        path = os.environ.get(ENV_CHANNEL)
+        if not path:
+            return
+        interval = fleet_publish_s()
+        if interval <= 0:
+            return
+        now = time.monotonic()
+        if not force and now - self._member_pub_last < interval:
+            return
+        self._member_pub_last = now
+        try:
+            from heatmap_tpu_torch.obs.fleet import compact_lineage
+            from heatmap_tpu_torch.serve.api import healthz_payload
+
+            extra = dict(self.writer.counters)
+            extra.pop("sink_retries", None)  # a registry series already
+            extra.update(getattr(self.source, "counters", None) or {})
+            publish_member_snapshot(
+                path, self._fresh_tag, role="runtime",
+                metrics_text=self.telemetry.expose_text(
+                    extra_counters=extra),
+                freshness=self.telemetry.freshness_summary(),
+                healthz=healthz_payload(self)[0],
+                lineage=compact_lineage(self.lineage.tail(16)),
+                audit=(self.audit.member_block()
+                       if self.audit is not None else None),
+                hist=(self.hist_compactor.member_block()
+                      if self.hist_compactor is not None else None),
+                infer=(self.infer.member_block()
+                       if self.infer is not None else None),
+                quality=(self.quality.member_block()
+                         if self.quality is not None else None),
+                left=left)
+        except Exception:  # noqa: BLE001 - never kill the step loop
+            log.warning("fleet member snapshot publish failed",
+                        exc_info=True)
 
     def step_once(self) -> bool:
         """Fold one batch (the prefetched one, else a fresh poll); False
@@ -1222,6 +1351,10 @@ class MicroBatchRuntime:
         if events is not None:
             events[1].record()
         self._ring.append(packed, self.epoch)
+        if self.audit is not None and entry.n:
+            # rows entering the fold; its counts arrive with the flush,
+            # so the gap between reads as a draining residual
+            self.audit.add("dispatched", entry.n)
         if lin is not None:
             self.lineage.ring_entered(lin)
             self._lineage_open[self.epoch] = lin
@@ -1354,14 +1487,29 @@ class MicroBatchRuntime:
                     d["vxKmh"] = round(v[0], 2)
                     d["vyKmh"] = round(v[1], 2)
             self.writer.submit_tiles(docs)
+            if self.audit is not None:
+                # the digest table takes the same enriched docs, so the
+                # velocity columns are covered by the digests
+                self.audit.add("docs_emitted", n_docs)
+                self.audit.shard_table(None).apply_docs(docs)
         elif n_docs:
             self.writer.submit_tiles_packed(body, self._pack_meta[pair])
+            if self.audit is not None:
+                # the emit-side stamp and the fold's digest table, decoded
+                # with the oracle the store and the view use, so the table
+                # is exactly the docs downstream will hold
+                self.audit.add("docs_emitted", n_docs)
+                self.audit.shard_table(None).apply_docs(
+                    packed_tile_docs(body, self._pack_meta[pair]))
         self.telemetry.count("tiles_emitted", n_docs)
         if pair == self._primary:
             self.telemetry.count("events_valid", stats.n_valid)
             # watermark-late, with the future-window poison the fold
-            # drops under the same mask: a tagged drop
+            # drops under the same mask: a tagged drop, so the ledger's
+            # identity closes: polled == folded + dropped
             self.telemetry.drop("late", stats.n_late)
+            if self.audit is not None:
+                self.audit.add("folded", stats.n_valid)
         else:
             self.telemetry.count(
                 f"events_late_r{pair[0]}m{pair[1] // 60}", stats.n_late)
@@ -1440,8 +1588,10 @@ class MicroBatchRuntime:
         exc = sys.exc_info()[1]
         if isinstance(exc, SystemExit) and not exc.code:
             exc = None  # sys.exit(0) mid-run is a clean shutdown
+        clean_close = not (self._fatal or self.writer.poisoned
+                           or exc is not None)
         if self.flightrec is not None:
-            if self._fatal or self.writer.poisoned or exc is not None:
+            if not clean_close:
                 why = ("fatal state overflow" if self._fatal
                        else "poisoned sink" if self.writer.poisoned
                        else f"abnormal exit: {type(exc).__name__}: {exc}")
@@ -1451,6 +1601,11 @@ class MicroBatchRuntime:
                                     "(HEATMAP_FLIGHTREC_ALWAYS=1)")
             else:
                 self.flightrec.disarm()
+        # the last member snapshot: a bounded run leaves its final counters
+        # and lineage on the channel, a clean close as a departure
+        # tombstone (a finished job must not read as a stale member), an
+        # abnormal one as a live snapshot that goes stale
+        self._publish_member_snapshot(force=True, left=clean_close)
         self.tracer.stop()  # write a partial profiler window, if any
         self._closing = True
         failed = lambda: self._fatal or self.writer.poisoned
@@ -1499,7 +1654,11 @@ class MicroBatchRuntime:
         try:
             while max_batches is None or n < max_batches:
                 t0 = time.monotonic()
-                if self.step_once():
+                progressed = self.step_once()
+                # the member snapshot rides the loop, idle polls included,
+                # so a quiet stream still reads as alive at /fleet/healthz
+                self._publish_member_snapshot()
+                if progressed:
                     n += 1
                 elif self.source.exhausted:
                     break

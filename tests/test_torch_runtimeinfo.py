@@ -323,9 +323,20 @@ def test_watchdog_thread_fires_and_refuses_a_channel(tmp_path, monkeypatch,
         wd.stop()
         assert wd.n_captures >= 1
         assert list(frdir.glob("flightrec-*.json"))
-        monkeypatch.setenv("HEATMAP_SUPERVISOR_CHANNEL", "chan.json")
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            SloWatchdog(rt)
+        # with a supervisor channel it runs in fleet mode, as the
+        # reference's does: the degraded verdict claims one episode on
+        # the channel and the dump carries its id
+        from heatmap_tpu_torch.obs.xproc import read_episode
+
+        chan = str(tmp_path / "chan.json")
+        monkeypatch.setenv("HEATMAP_SUPERVISOR_CHANNEL", chan)
+        fleet_wd = SloWatchdog(rt, cooldown_s=0, tag="p0")
+        assert fleet_wd.channel_path == chan
+        path = fleet_wd.check_once()
+        ep = read_episode(chan)
+        assert path and ep["origin"] == "p0"
+        assert json.loads(open(path).read())["episode_id"] \
+            == ep["episode_id"]
     finally:
         rt.close()
 

@@ -18,7 +18,8 @@ Python over the same text and clock).
   rules;
 - the default specs and rules, and ``slo_stamp`` over one directory of
   ``slo-state.json`` files written by both engines;
-- a ``channel_path`` (fleet episodes, ROADMAP A7) raises in the port.
+- with a ``channel_path`` a firing alert claims one fleet episode on the
+  channel and its recovery clears it, as in the reference.
 """
 
 import dataclasses
@@ -45,7 +46,8 @@ class Pair:
     function of a shared state dict and one clock."""
 
     def __init__(self, expo, specs, rules, tmp_path=None, frac=0.2,
-                 window=100.0, scrape_s=1.0, flightrec=False):
+                 window=100.0, scrape_s=1.0, flightrec=False,
+                 channel=False):
         self.state = {}
         self.clk = [0.0]
         self.side = {}
@@ -62,7 +64,9 @@ class Pair:
                             for s in specs) if specs is not None else None,
                 rules=tuple(slo.BurnRule(**dataclasses.asdict(r))
                             for r in rules) if rules is not None else None,
-                budget_frac=frac, budget_window_s=window, flightrec=fr)
+                budget_frac=frac, budget_window_s=window, flightrec=fr,
+                channel_path=(str(tmp_path / pkg / "chan.json") if channel
+                              else None))
             self.side[pkg] = (rec, eng, reg)
 
     def tick(self, t, **state):
@@ -285,6 +289,32 @@ def test_slo_stamp_reads_one_directory_equally(tmp_path):
 
 
 def test_channel_path_raises_naming_the_fleet(tmp_path):
-    rec = ttsdb.TsdbRecorder(lambda: "", tag="m0")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tslo.SloEngine(rec, channel_path=str(tmp_path / "chan.json"))
+    """With a supervisor channel the engines of both packages claim one
+    fleet episode when the rule fires (the alert event and the dump carry
+    its id, the broadcast names the engine's tag) and clear it when the
+    alert resolves, at the same ticks."""
+    from heatmap_tpu.obs import xproc as jxproc
+    from heatmap_tpu_torch.obs import xproc as txproc
+
+    pair = Pair(gauge_expo, [REPL_LAG], [RULE], tmp_path=tmp_path,
+                flightrec=True, channel=True)
+    readers = {"jax": jxproc.read_episode, "port": txproc.read_episode}
+    seen = {pkg: [] for pkg in PKGS}
+    for t in range(1, 115):
+        pair.tick(t, v=99.0 if 100 <= t < 110 else 0.0)
+        for pkg, read in readers.items():
+            ep = read(str(tmp_path / pkg / "chan.json"))
+            if ep.get("episode_id") and (
+                    not seen[pkg] or seen[pkg][-1][1] != ep["episode_id"]):
+                seen[pkg].append((t, ep["episode_id"], ep["origin"]))
+            if not ep and seen[pkg] and len(seen[pkg][-1]) == 3:
+                seen[pkg][-1] += (t,)
+    for pkg in PKGS:
+        ((t_fire, eid, origin, t_clear),) = seen[pkg]
+        assert (t_fire, origin, t_clear) == (109, "m0", 112)
+        rec, eng, _reg = pair.side[pkg]
+        alert, resolve = rec._events
+        assert alert["episode"] == resolve["episode"] == eid
+        (dump,) = (tmp_path / pkg / "fr").glob("flightrec-*.json")
+        assert json.loads(dump.read_text())["episode_id"] == eid
+        assert eng._state["repl_lag"].episode is None

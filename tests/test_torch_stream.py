@@ -364,24 +364,32 @@ with MockKafkaBroker() as bootstrap:
 assert len(PIPELINES) == 5 and len(MemorySource([{}]).poll(5)) == 1
 
 ckpt = tempfile.mkdtemp()
+# the integrity and delivery knobs and the fleet's channel, on
+import os
+os.environ["HEATMAP_SUPERVISOR_CHANNEL"] = ckpt + "/channel.json"
+os.environ["HEATMAP_DELIVERY"] = "1"
 cfg = load_config({}, city="bos", h3_res=9, resolutions=(9,),
                   batch_size=1024, state_capacity_log2=12,
                   checkpoint_dir=ckpt, repl_dir=ckpt + "/feed",
                   hist_dir=ckpt + "/hist", reducers=("count", "kalman"),
                   tsdb=True, tsdb_dir=ckpt + "/tsdb", tsdb_scrape_s=600.0,
-                  quality=True)
+                  quality=True, audit=True)
 store = MemoryStore()
 rt = MicroBatchRuntime(cfg, SyntheticSource(n_events=2048), store,
                        device="cpu")
 assert rt.tsdb is not None and rt.quality is not None
+assert rt.audit is not None
 rt.run()
+assert not any(rt.audit.residuals().values()), rt.audit.residuals()
 assert store.n_tiles > 0 and store.n_positions > 0
 # the read path over the run's writer-fed view, in process
 app = make_wsgi_app(store, cfg, rt)
 for path in ("/api/tiles/latest", "/api/tiles/delta", "/metrics",
              "/api/tiles/range", "/api/repl/meta", "/api/hist/index",
              "/api/tiles/forecast", "/debug/quality", "/debug/timeline",
-             "/fleet/timeline"):
+             "/fleet/timeline", "/debug/audit", "/debug/delivery",
+             "/fleet/metrics", "/fleet/healthz", "/fleet/freshness",
+             "/fleet/delivery", "/fleet/audit", "/fleet/quality"):
     out = []
     body = b"".join(app({"PATH_INFO": path, "QUERY_STRING": "t0=0",
                          "REQUEST_METHOD": "GET"},
@@ -389,6 +397,7 @@ for path in ("/api/tiles/latest", "/api/tiles/delta", "/metrics",
     assert out[0].startswith("200") and body, (path, out)
 app.close()
 shutil.rmtree(cfg.checkpoint_dir)
+del os.environ["HEATMAP_SUPERVISOR_CHANNEL"], os.environ["HEATMAP_DELIVERY"]
 
 # the same run through the writer into Mongo over the wire client and the
 # C++ encoders, and into the JSONL store
@@ -477,17 +486,17 @@ def test_entry_point_default_pipeline_matches_jax(monkeypatch):
     assert list(mine.choices) == list(ref.choices)
 
 
-# the observability knobs still refused name their exact slice
-_KNOB_ITEMS = {"HEATMAP_AUDIT": "A6c,", "HEATMAP_DELIVERY": "A6c,"}
+# the knobs still refused name their exact slice: the sharded runtime,
+# the governor and the supervisor (A7b), the mesh (A8)
+_KNOB_ITEMS = {"HEATMAP_SHARDS": "A7b,", "HEATMAP_SHARD_INDEX": "A7b,",
+               "HEATMAP_GOVERN": "A7b,", "HEATMAP_HEARTBEAT_FILE": "A7b,",
+               "HEATMAP_COORDINATOR": "A8,", "NUM_SHARDS": "A8,"}
 
 
 @pytest.mark.parametrize("knob,on,off", [
     ("HEATMAP_SHARDS", "2", "1"),
     ("HEATMAP_SHARD_INDEX", "1", "0"),
     ("HEATMAP_GOVERN", "1", "0"),
-    ("HEATMAP_AUDIT", "true", "false"),
-    ("HEATMAP_DELIVERY", " On", "no"),
-    ("HEATMAP_SUPERVISOR_CHANNEL", "channel.json", ""),
     ("HEATMAP_HEARTBEAT_FILE", "heartbeat", ""),
     ("HEATMAP_COORDINATOR", "127.0.0.1:1234", ""),
     ("NUM_SHARDS", "2", "1"),
@@ -499,18 +508,19 @@ def test_unported_knob_raises_by_name(knob, on, off):
     both packages."""
     with pytest.raises(NotImplementedError, match=knob) as e:
         load_config({knob: on})
-    assert f"ROADMAP {_KNOB_ITEMS.get(knob, 'A')}" in str(e.value)
+    assert f"ROADMAP {_KNOB_ITEMS[knob]}" in str(e.value)
     load_config({knob: off})
     jax_load_config({knob: off})
 
 
 # the telemetry time machine and the quality observatory (ROADMAP A6b,
-# A5): the knobs the port used to refuse load as in the reference
+# A5), integrity and delivery (A6c) and the fleet's channel (A7a): the
+# knobs the port used to refuse load as in the reference
 _A6B_A5_FIELDS = ("tsdb", "tsdb_dir", "tsdb_scrape_s", "tsdb_retain_s",
                   "tsdb_hot_s", "tsdb_flush_s", "slo_budget_frac",
                   "slo_budget_window_s", "quality", "quality_window_s",
                   "quality_lookback_s", "quality_mature_s", "quality_ttl_s",
-                  "reducers")
+                  "reducers", "audit", "audit_settle_s")
 
 
 @pytest.mark.parametrize("env", [
@@ -528,13 +538,24 @@ _A6B_A5_FIELDS = ("tsdb", "tsdb_dir", "tsdb_scrape_s", "tsdb_retain_s",
      "HEATMAP_QUALITY_MATURE_S": "0", "HEATMAP_QUALITY_TTL_S": "0"},
     {"HEATMAP_TSDB": "1", "HEATMAP_QUALITY": "yes",
      "HEATMAP_REDUCERS": "kalman,count"},
+    {"HEATMAP_AUDIT": "true"},
+    {"HEATMAP_AUDIT": "false", "HEATMAP_AUDIT_SETTLE_S": "2.5"},
+    {"HEATMAP_DELIVERY": " On"},
+    {"HEATMAP_DELIVERY": "no"},
+    {"HEATMAP_SUPERVISOR_CHANNEL": "channel.json"},
 ])
 def test_observability_knob_loads_as_the_reference(env):
-    """HEATMAP_TSDB and HEATMAP_QUALITY (and their knobs) no longer raise:
-    each loads the same config fields as the reference's load_config."""
+    """HEATMAP_TSDB, HEATMAP_QUALITY, HEATMAP_AUDIT (and their knobs),
+    HEATMAP_DELIVERY and HEATMAP_SUPERVISOR_CHANNEL no longer raise: each
+    loads the same config fields as the reference's load_config, and the
+    delivery knob reads the same in both packages."""
+    from heatmap_tpu.obs.delivery import delivery_enabled as jdelivery
+    from heatmap_tpu_torch.obs.delivery import delivery_enabled
+
     cfg, ref = load_config(env), jax_load_config(env)
     assert ({f: getattr(cfg, f) for f in _A6B_A5_FIELDS}
             == {f: getattr(ref, f) for f in _A6B_A5_FIELDS})
+    assert delivery_enabled(env) == jdelivery(env)
 
 
 @pytest.mark.parametrize("env", [
@@ -543,7 +564,8 @@ def test_observability_knob_loads_as_the_reference(env):
     {"HEATMAP_SLO_BUDGET_FRAC": "1.5"},
     {"HEATMAP_SLO_BUDGET_WINDOW_S": "0"}, {"HEATMAP_QUALITY_WINDOW_S": "0"},
     {"HEATMAP_QUALITY_LOOKBACK_S": "-1"}, {"HEATMAP_QUALITY_MATURE_S": "-1"},
-    {"HEATMAP_QUALITY_MATURE_S": "120", "HEATMAP_QUALITY_TTL_S": "60"}])
+    {"HEATMAP_QUALITY_MATURE_S": "120", "HEATMAP_QUALITY_TTL_S": "60"},
+    {"HEATMAP_AUDIT_SETTLE_S": "0"}])
 def test_observability_knobs_validated_as_in_jax(env):
     with pytest.raises(ValueError) as ref:
         jax_load_config(env)
@@ -620,15 +642,24 @@ def test_reducers_knob_is_honoured(spec):
 
 
 class _Clock:
-    """The time module, with ``sleep`` recorded instead of slept."""
+    """The time module, with ``sleep`` recorded instead of slept and
+    ``monotonic`` a fake clock that moves 1 ms a read: the trigger interval
+    is then measured on the loop's own reads, not on the wall time a busy
+    machine spends compiling a runtime's first step (past 60 s, under a
+    loaded parallel run, that step's sleep was skipped)."""
 
     def __init__(self):
         import time
 
         self._time, self.sleeps = time, []
+        self._mono = time.monotonic()
 
     def sleep(self, s):
         self.sleeps.append(s)
+
+    def monotonic(self):
+        self._mono += 1e-3
+        return self._mono
 
     def __getattr__(self, name):
         return getattr(self._time, name)

@@ -73,11 +73,7 @@ AXES = dict(city="bos", h3_res=8, resolutions=(8,), windows_minutes=(5,),
 REFERENCE_ONLY = {
     # the fast-path pin: multi-host lockstep and the governor pin the
     # emit ring and the prefetch down, and neither is ported
-    "heatmap_fastpath_pinned": "A7, A8",
-    # the serve tier's delivery lineage (obs/delivery.py), which the
-    # reference's app registers whether or not HEATMAP_DELIVERY is on
-    "heatmap_delivered_age_seconds": "A6c",
-    "heatmap_delivery_stage_seconds": "A6c",
+    "heatmap_fastpath_pinned": "A7b, A8",
 }
 
 
