@@ -6,6 +6,7 @@
                                     # in 3 pairs (off, on / on, off / ...)
     python3 chip_smoke.py quality 3 # the same for the quality phase's runs
     python3 chip_smoke.py audit 2   # the same for the audit phase's runs
+    python3 chip_smoke.py only shards govern  # the build, fold and those
 
 Phases, one JSON line each:
 
@@ -53,14 +54,56 @@ Phases, one JSON line each:
                 committed npz byte for byte, and the final tile and
                 position docs the fold phase's exactly; prints the time to recover (construction
                 plus the first batch) and the snap launches of both runs.
+5a. shards      the sharded runtime under its supervisor (ROADMAP A7b):
+                ``python -m heatmap_tpu_torch.stream synthetic_backfill
+                --supervise --shards 2 --device cuda`` with
+                HEATMAP_STORE=jsonl, a supervisor channel (members every
+                0.5 s) and a 3 s restart backoff, run twice.  The first
+                fleet, with --max-batches 4 and a cold
+                HEATMAP_NATIVE_CACHE (both children build the kernels and
+                codecs into it at once), stops after 4 batches a child,
+                each committing under <CHECKPOINT>/shard<i> at its close.
+                The second resumes each shard from its commit.  Each child
+                polls the whole stream (oversample 2) and folds the cells
+                it owns, keyed on the snap kernel's own cells.  Shard 1 is
+                SIGKILLed 2 batches past its commit (its heartbeat names
+                the epoch); the supervisor revives it and it resumes from
+                the commit again (a torn tail of its JSONL log is cut off
+                on open).  Checks: /fleet/healthz names member_shard1
+                while it is dark and not once it is back; one restart;
+                every child exits 0; each child of the second fleet polls
+                the stream from its shard's committed offset on; the
+                merged read (make_store(writer=False)) has the fold
+                phase's ids, counts and integer lanes exactly and its
+                floats within rel 1e-5 (the oversample re-cuts batches);
+                no tile _id in both shard logs; positions_latest at the
+                fold's newest second of each vehicle.  Printed: each
+                child's snap launches (two a poll: ownership and the
+                fold), events/s folded and polled, p50 batch; the
+                restarts, the shards' watermark lag, /fleet/healthz
+                before, dark and revived.
+5b. govern      the batch governor (ROADMAP A7b): synthetic_backfill with
+                HEATMAP_GOVERN=1, forced to start at the ladder's floor
+                (4,096 rows, a 0.5 s interval): its docs against the fold
+                phase's (ids and counts exact, floats within rel 1e-5:
+                re-cut batches change the f32 sums' last bits), one snap
+                launch a batch, no post-warmup build, the trail printed.
+                An exact-arithmetic stream (2^21 events, every f32 sum
+                exact) governed with the bucket cycled every step, and
+                ungoverned: byte-equal docs.  The rate the port sustains
+                pinned at the floor, then a RampSource ramp on the real
+                clock (low 3 s, high 12 s, low 10 s; high = 3 x the
+                floor's rate, low = high / 100; a 2 s SLO, a 1 s
+                interval): a breach in the high phase, a saturated climb, recovery within 24 intervals, a settled tail;
+                breach and recovery times printed.
 6. determinism  the first 3 batches twice from a fresh slab, then a flush:
                 the host matrices of the two runs must be byte-identical,
                 batch by batch.
 7. pipelines    hex_pyramid (res 7/8/9 x 5 min) and multi_window (res 8 x
                 1/5/15 min) in their presets' configs through
                 heatmap_tpu_torch.stream, each over a bounded
-                SyntheticSource (2^22 events, 32 batches of 2^17, 20,000
-                vehicles, 2,000 events/s: ~35 minutes of event time, so
+                SyntheticSource (2^21 events, 16 batches of 2^17, 20,000
+                vehicles, 1,000 events/s: ~35 minutes of event time, so
                 every window length closes and evicts) in a fresh
                 checkpoint directory.  The kernel against its plain version
                 on the first batch's points at each res (exact, and its
@@ -77,12 +120,12 @@ Phases, one JSON line each:
                 native codecs (the C++ CRC32C, record framing and JSON
                 decoder, built with g++ in the build phase): the port's
                 MockKafkaBroker with mobility.positions.v1 on 3 partitions,
-                the sources built first (they start at LATEST), then 2^20
-                JSON events in the reference schema (4,096 vehicles, 512 s
+                the sources built first (they start at LATEST), then 2^19
+                JSON events in the reference schema (4,096 vehicles, 256 s
                 of event time) produced through the port's KafkaClient,
-                keyed by vehicleId, 384 of them rejects.  The snap kernel
+                keyed by vehicleId, 192 of them rejects.  The snap kernel
                 against its plain version on the first Kafka batch (exact),
-                then the same stream, 8 batches of 2^17, into the three
+                then the same stream, 4 batches of 2^17, into the three
                 stores that HEATMAP_STORE selects: memory, jsonl
                 (<CHECKPOINT>/store.jsonl, reloaded after close) and mongo
                 (the port's MockMongod over the wire client and the C++
@@ -104,15 +147,15 @@ Phases, one JSON line each:
                 store) in every event format the reference takes, each
                 topic published by the port's KafkaPublisher into the
                 port's MockKafkaBroker (3 partitions) from the kafka
-                phase's 2^20 events: json (as there), binary (its rejects a
+                phase's 2^19 events: json (as there), binary (its rejects a
                 bad magic byte, a truncated value and lat 95, at the same 3
                 in 8,192 positions) and columnar (publish_columns, 16,384
-                events a value: 64 values round-robin; its rejects rows
+                events a value: 32 values round-robin; its rejects rows
                 with lat 95 or a timestamp out of range).  Each format runs
                 in process
                 and through the feeder process (HEATMAP_FEEDER=proc), and
                 json once more with HEATMAP_H3_IMPL=native.  Every run:
-                8 batches, the rejects dropped and no more, every value
+                4 batches, the rejects dropped and no more, every value
                 decoded natively, one snap launch a batch (none on the
                 native route), its tile docs the json in-process run's
                 (ints exact; floats under docs_match's bar for json and
@@ -262,8 +305,8 @@ Phases, one JSON line each:
                 member count, the SSE frames each subscriber read.
 
 Then one line listing every kernel (launches on the main path and in
-every later phase, agreement with its plain version, its time, the plain
-version's, the bound, by res), the
+every later phase, each shard child's among them, agreement with its
+plain version, its time, the plain version's, the bound, by res), the
 card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero; without a CUDA device it exits 2 and prints no result.
@@ -292,11 +335,14 @@ MAIN_RES = 9
 MAIN_BATCH = 1 << 19
 MAIN_EVENTS = 10_000_000    # synthetic_backfill: 20 batches
 MAIN_BATCHES = 20
-# the pipelines phase's stream: 32 batches of the presets' 2^17
-PIPE_SOURCE = dict(n_events=1 << 22, n_vehicles=20_000,
-                   events_per_second=2_000)
+# the pipelines phase's stream: 16 batches of the presets' 2^17 over ~35
+# minutes of event time (32 batches until the shards and govern phases
+# took their time)
+PIPE_SOURCE = dict(n_events=1 << 21, n_vehicles=20_000,
+                   events_per_second=1_000)
 OPENSKY_BATCHES = 8
-KAFKA_EVENTS = 1 << 20      # eight batches of mbta_default
+KAFKA_EVENTS = 1 << 19      # four batches of mbta_default (eight until
+                            # the shards and govern phases took their time)
 KAFKA_SOURCE = dict(n_vehicles=4_096, events_per_second=2_048)
 
 
@@ -1068,9 +1114,9 @@ def phase_opensky(torch, run_pipeline, snap_kernel, ckpt_dir, dev):
 
 
 def kafka_events():
-    """(keys, values, event dicts in produce order): 2^20 records in the
+    """(keys, values, event dicts in produce order): 2^19 records in the
     reference schema from a SyntheticSource (4,096 vehicles, 2,048 events/s:
-    512 s of event time, inside the 10-minute watermark however the
+    256 s of event time, inside the 10-minute watermark however the
     partitions interleave, and each vehicle's events 2 s apart, so its
     newest is unique), ISO and epoch timestamps alternating; 3 of every
     8,192 are rejects: malformed JSON, undecodable bytes, a latitude out
@@ -3861,6 +3907,537 @@ def audit_pairs(torch, snap_kernel, dev, n_pairs: int) -> None:
     emit(out)
 
 
+# --------------------------------------------------------------- shards
+SHARDS = 2
+SHARDS_PREFIX_BATCHES = 4   # the first fleet run's --max-batches
+SHARDS_KILL_AFTER = 2       # shard 1 dies this many batches past its commit
+SHARDS_PUBLISH_S = 0.5      # HEATMAP_FLEET_PUBLISH_S of the children
+SHARDS_BACKOFF_S = 3.0      # the supervisor's restart backoff
+SHARDS_FLOAT_REL = 1e-5     # the oversample mode's float bar
+
+
+def _beacon_epoch(path) -> int:
+    """The epoch a runtime's heartbeat file names (-1 before the first)."""
+    try:
+        with open(path, encoding="utf-8") as fh:
+            return int(fh.read().split("epoch=")[1])
+    except (OSError, IndexError, ValueError):
+        return -1
+
+
+def _gauge(text: str, name: str):
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def fleet_health(chan, max_age_s) -> dict:
+    """``/fleet/healthz`` over the channel, trimmed to what the phase
+    prints: status, members, stale members and the failing checks."""
+    from heatmap_tpu_torch.obs.fleet import FleetAggregator
+
+    payload, down = FleetAggregator(chan, max_age_s=max_age_s).healthz()
+    return {"status": payload["status"], "down": down,
+            "members": sorted(payload.get("members", [])),
+            "stale": sorted(payload.get("stale_members", [])),
+            "failing": sorted(k for k, v in payload["checks"].items()
+                              if not v.get("ok", True))}
+
+
+def start_fleet_cli(repo, env, out_path, err_path, *extra):
+    """``python -m heatmap_tpu_torch.stream synthetic_backfill --supervise
+    --shards SHARDS --device cuda`` with the children's JSON lines into
+    ``out_path``; returns the supervising process."""
+    with open(out_path, "w") as out_fh, open(err_path, "w") as err_fh:
+        return subprocess.Popen(
+            [sys.executable, "-m", "heatmap_tpu_torch.stream",
+             "synthetic_backfill", "--supervise", "--shards", str(SHARDS),
+             "--device", "cuda", *extra], cwd=repo, env=env, stdout=out_fh,
+            stderr=err_fh)
+
+
+def fleet_children(proc, out_path, err_path) -> dict:
+    """The children's JSON lines of a fleet run that ended, by shard; it
+    must have exited 0 with one line a shard."""
+    rc = proc.wait()
+    if rc != 0:
+        with open(err_path) as fh:
+            tail = fh.read()[-4000:]
+        raise AssertionError(f"the shard fleet exited {rc}: {tail}")
+    with open(out_path) as fh:
+        children = [json.loads(line) for line in fh
+                    if line.startswith("{")]
+    by_shard = {c["shard_index"]: c for c in children}
+    if sorted(by_shard) != list(range(SHARDS)) or len(children) != SHARDS:
+        raise AssertionError(f"children's lines: {children}")
+    for c in children:
+        if (c["device"] != "cuda" or not c["snap_launches"]
+                or c["state_overflow"] or not c["events_out_of_shard"]):
+            raise AssertionError(f"shard child: {c}")
+    return by_shard
+
+
+def phase_shards(torch, snap_kernel, fold_docs, fold_positions, ckpt_dir):
+    """``python -m heatmap_tpu_torch.stream synthetic_backfill --supervise
+    --shards 2 --device cuda`` into the JSONL store, twice: the first
+    fleet stops after SHARDS_PREFIX_BATCHES batches a child and commits at
+    its close; the second resumes each shard from its commit, and shard 1
+    is SIGKILLed past it and revived; the merged read against the fold
+    phase's docs."""
+    import signal
+
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.obs import SupervisorChannel
+    from heatmap_tpu_torch.obs.xproc import members_from
+    from heatmap_tpu_torch.sink import JsonlStore, make_store
+    from heatmap_tpu_torch.stream.checkpoint import CheckpointManager
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-shards-")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HEATMAP_SHARD", "HEATMAP_H3_IMPL"))}
+    env.update({"HEATMAP_STORE": "jsonl", "CHECKPOINT": ckpt_dir,
+                "HEATMAP_FLEET_PUBLISH_S": str(SHARDS_PUBLISH_S),
+                "HEATMAP_SUPERVISE_BACKOFF_S": str(SHARDS_BACKOFF_S),
+                "HEATMAP_SUPERVISE_BACKOFF_MAX_S": str(SHARDS_BACKOFF_S),
+                # a cold build directory: both children of the first
+                # fleet build the kernels and the codecs into it at once
+                "HEATMAP_NATIVE_CACHE": f"{tmp}/build", "TMPDIR": tmp})
+    t0 = time.monotonic()
+    # 1. the first fleet: SHARDS_PREFIX_BATCHES batches a child, each
+    # shard's close commits under <CHECKPOINT>/shard<i>
+    paths = (f"{tmp}/prefix.out", f"{tmp}/prefix.err")
+    proc = start_fleet_cli(
+        repo, dict(env, HEATMAP_SUPERVISOR_CHANNEL=f"{tmp}/chan-prefix"),
+        *paths, "--max-batches", str(SHARDS_PREFIX_BATCHES))
+    try:
+        proc.wait(timeout=600)
+    finally:
+        stop_process(proc)
+    prefix = fleet_children(proc, *paths)
+    commits = [CheckpointManager(f"{ckpt_dir}/shard{i}").load_meta()
+               for i in range(SHARDS)]
+    if not all(commits):
+        raise AssertionError("a shard of the first fleet left no commit")
+    prefix_s = time.monotonic() - t0
+    # 2. the second fleet resumes every shard from its commit; shard 1 is
+    # SIGKILLed SHARDS_KILL_AFTER batches past it and revived
+    chan = f"{tmp}/chan"
+    paths = (f"{tmp}/children.out", f"{tmp}/fleet.err")
+    proc = start_fleet_cli(repo, dict(env, HEATMAP_SUPERVISOR_CHANNEL=chan),
+                           *paths)
+    beacon = f"{tmp}/heatmap-hb-{proc.pid}-shard1"
+    kill_epoch = commits[1]["epoch"] + SHARDS_KILL_AFTER
+    before = dark = revived = None
+    killed = None
+    lag_max = {}
+    try:
+        deadline = time.monotonic() + 600
+        while proc.poll() is None:
+            if time.monotonic() > deadline:
+                raise AssertionError("the shard fleet ran past 600 s")
+            members, _ = members_from(chan, max_age_s=30.0)
+            for tag, m in members.items():
+                lag = _gauge(m.get("metrics_text", ""),
+                             "heatmap_shard_watermark_lag_seconds")
+                if lag is not None:
+                    lag_max[tag] = max(lag_max.get(tag, 0.0), lag)
+            if (before is None and {"shard0", "shard1", "supervisor"}
+                    <= set(members)):
+                before = fleet_health(chan, 3 * SHARDS_PUBLISH_S)
+            if (killed is None and before is not None and "shard1" in members
+                    and _beacon_epoch(beacon) >= kill_epoch):
+                killed = {"pid": members["shard1"]["pid"],
+                          "epoch": _beacon_epoch(beacon),
+                          "committed_epoch": commits[1]["epoch"],
+                          "committed_offset": commits[1]["offset"],
+                          "t_s": time.monotonic() - t0}
+                os.kill(killed["pid"], signal.SIGKILL)
+            if killed is not None and dark is None:
+                h = fleet_health(chan, 3 * SHARDS_PUBLISH_S)
+                if "shard1" in h["stale"]:
+                    dark = dict(h, t_s=time.monotonic() - t0)
+            if (dark is not None and revived is None
+                    and members.get("shard1", {}).get("pid")
+                    not in (None, killed["pid"])):
+                h = fleet_health(chan, 3 * SHARDS_PUBLISH_S)
+                if "shard1" in h["members"] and "shard1" not in h["stale"]:
+                    revived = dict(h, t_s=time.monotonic() - t0)
+            time.sleep(0.1)
+    finally:
+        stop_process(proc)
+    wall = time.monotonic() - t0
+    by_shard = fleet_children(proc, *paths)
+    if before is None or killed is None or dark is None or revived is None:
+        raise AssertionError(f"fleet before {before}, kill {killed}, dark "
+                             f"{dark}, revived {revived}")
+    # the children's own verdicts may degrade (these events are years
+    # old: the event-age budget); what the fleet must show is shard 1
+    # going dark and coming back
+    if before["stale"] or before["down"]:
+        raise AssertionError(f"/fleet/healthz before the kill: {before}")
+    if "member_shard1" not in dark["failing"] or dark["status"] == "ok":
+        raise AssertionError(f"/fleet/healthz with shard 1 dark: {dark}")
+    chan_state = SupervisorChannel.metrics_from(chan)
+    if chan_state.get("restarts_total") != 1 or chan_state.get("gave_up"):
+        raise AssertionError(f"supervisor channel: {chan_state}")
+    # each child of the second fleet read the stream from its shard's
+    # commit on, the revived shard 1 too, not from offset 0: its own rows
+    # and the foreign rows its ownership filter dropped
+    for i, c in by_shard.items():
+        read = c["events_polled"] + c["events_out_of_shard"]
+        if read != MAIN_EVENTS - commits[i]["offset"]:
+            raise AssertionError(
+                f"shard {i} read {read} events after its commit at "
+                f"offset {commits[i]['offset']}")
+    # the merged read: the union of the shard logs against the fold's
+    cfg = dataclasses.replace(get_pipeline("synthetic_backfill").config,
+                              store="jsonl", shards=SHARDS,
+                              checkpoint_dir=ckpt_dir)
+    reader = make_store(cfg, writer=False)
+    merged, positions = dict(reader._tiles), dict(reader._positions)
+    reader.close()
+    ids = []
+    for i in range(SHARDS):
+        log_ = JsonlStore(f"{ckpt_dir}/shard{i}")
+        ids.append(set(log_._tiles))
+        log_.close()
+    both = ids[0] & ids[1]
+    if both:
+        raise AssertionError(f"{len(both)} tile ids written by both "
+                             f"shards, e.g. {sorted(both)[:3]}")
+    total = sum(d["count"] for d in merged.values())
+    if total != MAIN_EVENTS:
+        raise AssertionError(f"merged counts {total} != {MAIN_EVENTS}")
+    worst = docs_close(fold_docs, merged, rel=SHARDS_FLOAT_REL)
+    n_float_diff = sum(1 for k, d in merged.items() if d != fold_docs[k])
+    # positions_latest: each vehicle at the fold's newest second (a
+    # vehicle's rows of that second may lie in both shards, and the
+    # store keeps the first of equal timestamps, so the point may differ)
+    newest = lambda ps: {k: d["ts"] for k, d in ps.items()}
+    if newest(positions) != newest(fold_positions):
+        raise AssertionError("merged positions_latest differ from the "
+                             "fold phase's in their newest seconds")
+    pos_moved = sum(1 for k, d in positions.items()
+                    if d != fold_positions[k])
+    out = {"phase": "shards", "shards": SHARDS, "wall_s": wall,
+           "children": {i: {
+               "snap_launches": c["snap_launches"],
+               "kalman_launches": c["kalman_launches"],
+               "batches": c["batches"], "events_valid": c["events_valid"],
+               "events_out_of_shard": c["events_out_of_shard"],
+               "events_polled": c["events_polled"],
+               "events_folded_per_s": c["events_valid"] / c["wall_s"],
+               "events_polled_per_s": (c["events_valid"]
+                                       + c["events_out_of_shard"])
+               / c["wall_s"],
+               "wall_s": c["wall_s"], "p50_batch_ms": c["p50_batch_ms"],
+               "p50_span_ms": {k: c["p50_span_ms"].get(k) for k in (
+                   "poll", "feed", "dispatch", "positions", "prefetch")},
+               "checkpoints": c["checkpoints"]}
+               for i, c in sorted(by_shard.items())},
+           "prefix": {"max_batches": SHARDS_PREFIX_BATCHES,
+                      "wall_s": prefix_s,
+                      "children": {i: {k: c[k] for k in (
+                          "snap_launches", "batches", "events_valid",
+                          "events_polled", "checkpoints")}
+                          for i, c in sorted(prefix.items())},
+                      "commits": [{k: m[k] for k in ("epoch", "offset")}
+                                  for m in commits]},
+           "killed": killed, "restarts": chan_state["restarts_total"],
+           "watermark_lag_s_max": lag_max,
+           "fleet_healthz": {"before": before, "dark": dark,
+                             "revived": revived},
+           "tiles": len(merged), "tiles_by_shard": [len(x) for x in ids],
+           "ids_in_both_shards": len(both),
+           "docs_float_differing": n_float_diff,
+           "worst_rel_diff": worst, "positions": len(positions),
+           "positions_other_point_same_second": pos_moved}
+    emit(out)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# --------------------------------------------------------------- govern
+GOVERN_INTERVAL_S = 0.5     # the governed fold's control cadence
+EXACT_EVENTS = 1 << 21      # the exact-arithmetic pair: 4 preset batches
+EXACT_CYCLE = (1 << 19, 4096, 65536, 1 << 18, 16384)
+RAMP_SLO_MS = 2000          # HEATMAP_SLO_FRESHNESS_P50_MS of the ramp
+RAMP_INTERVAL_S = 1.0
+RAMP_HEALTHY_FRAC = 0.1     # no headroom moves: the climb is saturation's
+RAMP_TRIGGER_MS = 25
+RAMP_PHASES_S = (3.0, 12.0, 10.0)   # low, high, low
+
+
+def exact_source(n_events):
+    """An exact-arithmetic stream at the preset's widths: 2,000 vehicles,
+    each at a fixed point of its own res-9 cell (0.01 degrees apart),
+    speeds on a 0.25 km/h grid, 100,000 events/s of event time.  Every
+    f32 sum of the fold is exact however its batches are cut, so two
+    runs that cut them differently must agree bit for bit."""
+    from heatmap_tpu_torch.stream.events import columns_from_arrays
+    from heatmap_tpu_torch.stream.source import Source
+
+    v = np.arange(2000)
+    lat, lng = 42.1 + (v // 45) * 0.01, -71.3 + (v % 45) * 0.01
+    vehicles = [f"veh-{i}" for i in range(2000)]
+
+    class ExactSource(Source):
+        def __init__(self):
+            self.n_events, self._emitted = n_events, 0
+
+        def poll(self, max_events):
+            n = max(0, min(max_events, self.n_events - self._emitted))
+            i = self._emitted + np.arange(n, dtype=np.int64)
+            vid = (i % 2000).astype(np.int32)
+            self._emitted += n
+            return columns_from_arrays(
+                lat[vid].astype(np.float32), lng[vid].astype(np.float32),
+                ((i % 40) * 0.25).astype(np.float32),
+                (1_700_000_000 + i // 100_000).astype(np.int32),
+                provider_id=np.zeros(n, np.int32), vehicle_id=vid,
+                providers=["exact"], vehicles=vehicles)
+
+        def offset(self):
+            return self._emitted
+
+        def seek(self, offset):
+            self._emitted = int(offset or 0)
+
+        @property
+        def exhausted(self):
+            return self._emitted >= self.n_events
+
+    return ExactSource()
+
+
+def _governed(cfg, source, store, dev="cuda", positions_enabled=True,
+              **kw):
+    from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+
+    cfg = dataclasses.replace(cfg, govern=True, **kw)
+    return MicroBatchRuntime(cfg, source, store, device=dev,
+                             checkpoint_every=0,
+                             positions_enabled=positions_enabled)
+
+
+def ramp_p50(rt, now, window_s=2.0):
+    ages = sorted(r["age_s"]["mean"] for r in rt.lineage.tail(64)
+                  if "age_s" in r and r.get("t_sink", 0) >= now - window_s)
+    return ages[len(ages) // 2] if ages else None
+
+
+def phase_govern(torch, snap_kernel, fold_docs, ckpt_root, dev):
+    """The governor on the card: synthetic_backfill governed from the
+    ladder's floor against the fold phase's docs; an exact-arithmetic pair
+    whose docs must be byte-equal; then a RampSource ramp on the real
+    clock."""
+    from heatmap_tpu_torch.models.pipelines import get_pipeline
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.source import SyntheticSource
+
+    from heatmap_tpu_torch.infer import kalman
+
+    base = dataclasses.replace(get_pipeline("synthetic_backfill").config,
+                               store="memory")
+    kalman_before = kalman.kalman_rounds.launches
+    # 1. synthetic_backfill governed, forced to start at the floor
+    p = get_pipeline("synthetic_backfill")
+    store = MemoryStore()
+    rt = _governed(base, p.make_source(p.config), store, dev,
+                   govern_interval_s=GOVERN_INTERVAL_S,
+                   checkpoint_dir=f"{ckpt_root}/govern")
+    gov = rt.governor
+    floor = gov.ladder[0]
+    gov.force(batch_rows=floor, reason="floor")
+    torch.cuda.synchronize()
+    snap_kernel.latlng_to_cell_kernel.launches = 0
+    t0 = time.monotonic()
+    rt.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = snap_kernel.latlng_to_cell_kernel.launches
+    m = rt.metrics
+    compile_snap = rt.runtimeinfo.compile.snapshot()
+    trail = list(gov.trail)
+    docs = store._tiles
+    if compile_snap["retraces_after_warmup"] != 0 or gov.frozen:
+        raise AssertionError(f"governed run: {compile_snap}, frozen "
+                             f"{gov.frozen_why}")
+    # (a CPU rehearsal runs the plain version, which launches nothing)
+    if ((launches != m["batches"] and dev.type == "cuda")
+            or m["events_valid"] != MAIN_EVENTS):
+        raise AssertionError(f"governed run: {launches} snap launches, "
+                             f"{m['batches']} batches, "
+                             f"{m['events_valid']} events")
+    if not any(t["dir"] == "up" for t in trail):
+        raise AssertionError(f"the governor never moved: {trail}")
+    worst = docs_close(fold_docs, docs, rel=SHARDS_FLOAT_REL)
+    n_float_diff = sum(1 for k, d in docs.items() if d != fold_docs[k])
+    governed = {"wall_s": wall, "events_per_s": m["events_valid"] / wall,
+                "p50_batch_ms": m["p50_batch_ms"], "batches": m["batches"],
+                "snap_launches": launches,
+                "retraces_after_warmup":
+                    compile_snap["retraces_after_warmup"],
+                "ladder": list(gov.ladder), "final": gov.snapshot(),
+                "trail": trail, "pulls_govern": m["pulls"]["govern"],
+                "docs": len(docs), "docs_float_differing": n_float_diff,
+                "worst_rel_diff": worst}
+    del rt, store, docs
+    # 2. the exact pair: governed (the bucket cycled every step) and
+    # ungoverned, byte-equal docs and positions
+    exact = []
+    for cycle in (EXACT_CYCLE, ()):
+        st = MemoryStore()
+        if cycle:
+            rt = _governed(base, exact_source(EXACT_EVENTS), st, dev,
+                           checkpoint_dir=f"{ckpt_root}/exact-g")
+        else:
+            from heatmap_tpu_torch.stream.runtime import MicroBatchRuntime
+
+            rt = MicroBatchRuntime(
+                dataclasses.replace(base,
+                                    checkpoint_dir=f"{ckpt_root}/exact-u"),
+                exact_source(EXACT_EVENTS), st, device=dev,
+                checkpoint_every=0)
+        i = 0
+        while True:
+            progressed = rt.step_once()
+            if cycle:
+                rt.governor.force(batch_rows=cycle[i % len(cycle)],
+                                  flush_k=1 + i % 4, prefetch=i % 2)
+                i += 1
+            if not progressed and rt.source.exhausted:
+                break
+        rt.close()
+        exact.append((rt, st))
+    (rg, sg), (ru, su) = exact
+    if (sg._tiles != su._tiles or sg._positions != su._positions
+            or not su._tiles
+            or rg.counters["events_valid"] != EXACT_EVENTS
+            or rg.runtimeinfo.compile.snapshot()[
+                "retraces_after_warmup"]):
+        raise AssertionError("the exact pair's governed docs differ from "
+                             "the ungoverned run's")
+    exact_out = {"events": EXACT_EVENTS, "docs": len(su._tiles),
+                 "batches_governed": rg.counters["batches"],
+                 "batches_ungoverned": ru.counters["batches"],
+                 "byte_equal": True}
+    del exact, rg, sg, ru, su
+    # 3. the rate the port sustains pinned at the floor
+    os.environ["HEATMAP_SLO_FRESHNESS_P50_MS"] = str(RAMP_SLO_MS)
+    try:
+        rt = _governed(base, SyntheticSource(
+            n_vehicles=64, events_per_second=1 << 30),
+            MemoryStore(), dev, positions_enabled=False,
+            checkpoint_dir=f"{ckpt_root}/rate-floor",
+            trigger_ms=RAMP_TRIGGER_MS, govern_interval_s=3600.0,
+            query_view=False)
+        rt.governor.force(batch_rows=floor, flush_k=1, prefetch=0)
+        for _ in range(3):
+            rt.step_once()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        steps = 120
+        for _ in range(steps):
+            t_step = time.monotonic()
+            rt.step_once()
+            dt = RAMP_TRIGGER_MS / 1e3 - (time.monotonic() - t_step)
+            if dt > 0:
+                time.sleep(dt)
+        torch.cuda.synchronize()
+        floor_rate = floor * steps / (time.monotonic() - t1)
+        rt.close()
+        high = 3.0 * floor_rate
+        low = high / 100.0
+        ramp = ramp_run(torch, base, ckpt_root, dev, floor, high, low)
+    finally:
+        del os.environ["HEATMAP_SLO_FRESHNESS_P50_MS"]
+    out = {"phase": "govern", "governed_fold": governed,
+           "exact_pair": exact_out, "floor_events_per_s": floor_rate,
+           "ramp": ramp,
+           "kalman_launches": kalman.kalman_rounds.launches - kalman_before}
+    emit(out)
+    return out
+
+
+def ramp_run(torch, base, ckpt_root, dev, floor, high, low):
+    """The reference test's ramp on the card's real clock: low, 100x,
+    low, against RampSource's backlog, the governor forced to the floor;
+    the breach, the saturated climb, the recovery within 24 intervals and
+    the settled tail."""
+    import threading
+
+    from heatmap_tpu_torch.sink.memory import MemoryStore
+    from heatmap_tpu_torch.stream.source import RampSource
+
+    schedule = [(low, RAMP_PHASES_S[0]), (high, RAMP_PHASES_S[1]),
+                (low, RAMP_PHASES_S[2])]
+    src = RampSource(schedule, clock=time.time)
+    rt = _governed(base, src, MemoryStore(), dev, positions_enabled=False,
+                   checkpoint_dir=f"{ckpt_root}/ramp",
+                   trigger_ms=RAMP_TRIGGER_MS,
+                   govern_interval_s=RAMP_INTERVAL_S,
+                   govern_healthy_frac=RAMP_HEALTHY_FRAC, emit_flush_k=8,
+                   query_view=False)
+    gov = rt.governor
+    gov.force(batch_rows=floor, flush_k=1, prefetch=0,
+              reason="low-load-converged")
+    slo_s = RAMP_SLO_MS / 1e3
+    samples, err = [], []
+
+    def run():
+        try:
+            rt.run()
+        except BaseException as e:  # raised below
+            err.append(e)
+
+    th = threading.Thread(target=run, daemon=True)
+    t_start = time.time()
+    th.start()
+    deadline = time.monotonic() + 4 * sum(RAMP_PHASES_S)
+    while th.is_alive() and time.monotonic() < deadline:
+        time.sleep(0.2)
+        now = time.time()
+        samples.append({"t": now - t_start, "p50": ramp_p50(rt, now),
+                        "batch": gov.batch_rows})
+    if th.is_alive():
+        src.stop()
+        th.join(timeout=60)
+        raise AssertionError("the ramp never drained")
+    if err:
+        raise err[0]
+    high_t0 = RAMP_PHASES_S[0]
+    breaches = [s for s in samples if s["p50"] is not None
+                and s["p50"] > slo_s and s["t"] >= high_t0]
+    ups = [t for t in gov.trail if t.get("dir") == "up"
+           and t["reason"] == "saturated"]
+    retr = rt.runtimeinfo.compile.snapshot()["retraces_after_warmup"]
+    out = {"schedule": schedule, "slo_s": slo_s,
+           "interval_s": RAMP_INTERVAL_S, "floor": floor,
+           "retraces_after_warmup": retr,
+           "trail": [{k: t.get(k) for k in ("t", "dir", "reason",
+                                             "batch_rows", "p50_ms")}
+                     for t in gov.trail], "samples": len(samples)}
+    if not breaches:
+        raise AssertionError(f"the ramp never breached: {out}")
+    t_breach = breaches[0]["t"]
+    rec = [s for s in samples if s["p50"] is not None
+           and s["p50"] <= slo_s and s["t"] > t_breach]
+    settled = [s for s in samples if s["p50"] is not None][-3:]
+    out.update(breach_t_s=t_breach, max_p50_s=max(
+        s["p50"] for s in samples if s["p50"] is not None),
+        recovery_t_s=rec[0]["t"] if rec else None,
+        recovery_after_breach_s=rec[0]["t"] - t_breach if rec else None,
+        top_batch=max(s["batch"] for s in samples))
+    if (retr or not ups or not rec
+            or rec[0]["t"] - t_breach > 24 * RAMP_INTERVAL_S
+            or not all(s["p50"] <= slo_s for s in settled)):
+        raise AssertionError(f"the ramp failed its conditions: {out}")
+    return out
+
+
 PAIRS = {"obs": obs_pairs, "quality": quality_pairs, "audit": audit_pairs}
 
 
@@ -3873,9 +4450,10 @@ def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if argv and (len(argv) != 2 or argv[0] not in PAIRS):
-        print("usage: chip_smoke.py [obs|quality|audit N_PAIRS]",
-              file=sys.stderr)
+    only = argv[:1] == ["only"] and set(argv[1:]) <= {"shards", "govern"}
+    if argv and not only and (len(argv) != 2 or argv[0] not in PAIRS):
+        print("usage: chip_smoke.py [obs|quality|audit N_PAIRS | only "
+              "shards govern]", file=sys.stderr)
         return 2
     from heatmap_tpu_torch import _build
     from heatmap_tpu_torch.hexgrid import snap_kernel
@@ -3885,8 +4463,23 @@ def main(argv=()) -> int:
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     phase_build(_build)
-    if argv:
+    if only:
+        # the fold phase (whose docs the two phases hold theirs to), then
+        # the phases named
+        ckpt_root = tempfile.mkdtemp(prefix="chip_smoke-ckpt-")
+        try:
+            _, docs, positions = phase_fold(
+                torch, run_pipeline, snap_kernel, f"{ckpt_root}/fold")
+            if "shards" in argv:
+                phase_shards(torch, snap_kernel, docs, positions,
+                             f"{ckpt_root}/shards")
+            if "govern" in argv:
+                phase_govern(torch, snap_kernel, docs, ckpt_root, dev)
+        finally:
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+    elif argv:
         PAIRS[argv[0]](torch, snap_kernel, dev, int(argv[1]))
+    if argv:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -3921,6 +4514,9 @@ def main(argv=()) -> int:
             torch, run_pipeline, snap_kernel, f"{ckpt_root}/fold")
         resume = phase_resume(torch, snap_kernel, fold_docs, fold_positions,
                               f"{ckpt_root}/resume")
+        shards = phase_shards(torch, snap_kernel, fold_docs, fold_positions,
+                              f"{ckpt_root}/shards")
+        govern = phase_govern(torch, snap_kernel, fold_docs, ckpt_root, dev)
         del fold_docs, fold_positions
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -3974,6 +4570,9 @@ def main(argv=()) -> int:
         "launches_quality_phase": [r["snap_launches"]
                                    for r in quality["runs"]],
         "launches_audit_phase": audit["snap_launches"],
+        "launches_shards_phase": [c["snap_launches"] for c in
+                                  shards["children"].values()],
+        "launches_govern_phase": govern["governed_fold"]["snap_launches"],
         "obs_profile_window_kernel_events": [
             r["profile"]["snap_kernel_events"] for r in obs["runs"]
             if r["on"]],
@@ -3994,6 +4593,9 @@ def main(argv=()) -> int:
         "launches_quality_phase": [r["kalman_launches"]
                                    for r in quality["runs"]],
         "launches_audit_phase": audit["kalman_launches"],
+        "launches_shards_phase": [c["kalman_launches"] for c in
+                                  shards["children"].values()],
+        "launches_govern_phase": govern["kalman_launches"],
         "max_abs_err": main_rounds["max_abs_err"],
         "identical_share": min(f["identical"]
                                for f in main_rounds["fields"].values()),

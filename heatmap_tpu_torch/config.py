@@ -67,15 +67,10 @@ def parse_reducers(spec: str) -> tuple:
 
 # knob -> (does this value ask for the subsystem?, the ROADMAP item that
 # ports it); the reference's value when the knob is unset never does.
-# HEATMAP_DELIVERY and HEATMAP_SUPERVISOR_CHANNEL are read where they are
-# used (obs.delivery, obs.xproc), as in the reference
+# HEATMAP_DELIVERY, HEATMAP_SUPERVISOR_CHANNEL and HEATMAP_HEARTBEAT_FILE
+# are read where they are used (obs.delivery, obs.xproc, the runtime's
+# beacon), as in the reference
 UNPORTED_KNOBS = {
-    "HEATMAP_SHARDS": (lambda v: int(v) > 1, "A7b, the sharded runtime"),
-    "HEATMAP_SHARD_INDEX": (lambda v: int(v) != 0,
-                            "A7b, the sharded runtime"),
-    "HEATMAP_GOVERN": (_flag_on, "A7b, the governor"),
-    # the supervisor's liveness beacon (stream/supervisor.py)
-    "HEATMAP_HEARTBEAT_FILE": (bool, "A7b, the supervisor"),
     # jax.distributed and a mesh (parallel/multihost.py, stream/__main__)
     "HEATMAP_COORDINATOR": (bool, "A8, the mesh"),
     "NUM_SHARDS": (lambda v: int(v) > 1, "A8, the mesh"),
@@ -141,10 +136,51 @@ class Config:
     serve_host: str = "127.0.0.1"
     serve_port: int = 5000             # 0 binds an ephemeral port
     store: str = "auto"                # "auto" | "memory" | "mongo" | "jsonl"
-    # HEATMAP_SHARD_RES: H3 parent resolution of a partition key; -1 = the
-    # snap resolution itself.  Read by the logical entity partition
-    # (HEATMAP_ENTITY_SHARDS); the sharded runtime is ROADMAP A7b
-    shard_res: int = -1
+    shards: int = 1                    # HEATMAP_SHARDS: total runtime
+                                       # shard processes partitioning
+                                       # the event stream by H3 parent
+                                       # cell (stream/shardmap.py); 1 =
+                                       # unsharded (the default)
+    shard_index: int = 0               # HEATMAP_SHARD_INDEX: this
+                                       # process's shard in 0..N-1 (the
+                                       # fleet supervisor sets it per
+                                       # child)
+    shard_res: int = -1                # HEATMAP_SHARD_RES: H3 parent
+                                       # resolution of the partition
+                                       # key; -1 = the snap resolution
+                                       # itself (parent == cell).  Must
+                                       # not exceed min(resolutions).
+    shard_oversample: int = 0          # HEATMAP_SHARD_OVERSAMPLE: how
+                                       # many feed batches of stream
+                                       # rows a shard polls a step
+                                       # before the ownership filter
+                                       # compacts them (0 = the shard
+                                       # count; 1 = one feed shape, the
+                                       # byte-exact differential mode)
+    govern: bool = False               # HEATMAP_GOVERN: adaptive
+                                       # micro-batching (stream/
+                                       # govern.py): the live batch
+                                       # bucket, emit_flush_k and
+                                       # prefetch_batches move within
+                                       # the bounds below to hold
+                                       # HEATMAP_SLO_FRESHNESS_P50_MS;
+                                       # the static knobs become the
+                                       # initial values.  0 = static
+    govern_interval_s: float = 5.0     # HEATMAP_GOVERN_INTERVAL_S:
+                                       # control-loop cadence
+    govern_min_batch: int = 4096       # HEATMAP_GOVERN_MIN_BATCH: the
+                                       # bucket ladder's floor (powers
+                                       # of two from here up to
+                                       # BATCH_SIZE, each warmed at
+                                       # startup)
+    govern_max_flush_k: int = 32       # HEATMAP_GOVERN_MAX_FLUSH_K:
+                                       # flush-K ceiling (floor 1)
+    govern_max_prefetch: int = 4       # HEATMAP_GOVERN_MAX_PREFETCH:
+                                       # prefetch ceiling (floor 0)
+    govern_healthy_frac: float = 0.5   # HEATMAP_GOVERN_HEALTHY_FRAC:
+                                       # upward moves only while the
+                                       # recent event-age p50 is below
+                                       # this fraction of the SLO
     # HEATMAP_REDUCERS: the per-step reducer set riding the dispatched
     # batches (parse_reducers); "count" is the fused device fold itself
     # and always a member; "kalman" adds the entity filter (infer/engine.py)
@@ -406,7 +442,22 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
         lineage_tail=_int(e, "HEATMAP_LINEAGE_TAIL", Config.lineage_tail),
         trigger_ms=_int(e, "TRIGGER_MS", Config.trigger_ms),
         store=e.get("HEATMAP_STORE", Config.store),
+        govern=_flag_on(e.get("HEATMAP_GOVERN", "0")),
+        govern_interval_s=_float(e, "HEATMAP_GOVERN_INTERVAL_S",
+                                 Config.govern_interval_s),
+        govern_min_batch=_int(e, "HEATMAP_GOVERN_MIN_BATCH",
+                              Config.govern_min_batch),
+        govern_max_flush_k=_int(e, "HEATMAP_GOVERN_MAX_FLUSH_K",
+                                Config.govern_max_flush_k),
+        govern_max_prefetch=_int(e, "HEATMAP_GOVERN_MAX_PREFETCH",
+                                 Config.govern_max_prefetch),
+        govern_healthy_frac=_float(e, "HEATMAP_GOVERN_HEALTHY_FRAC",
+                                   Config.govern_healthy_frac),
+        shards=_int(e, "HEATMAP_SHARDS", Config.shards),
+        shard_index=_int(e, "HEATMAP_SHARD_INDEX", Config.shard_index),
         shard_res=_int(e, "HEATMAP_SHARD_RES", Config.shard_res),
+        shard_oversample=_int(e, "HEATMAP_SHARD_OVERSAMPLE",
+                              Config.shard_oversample),
         reducers=tuple(
             s.strip() for s in e.get("HEATMAP_REDUCERS", "count").split(",")
             if s.strip()),
@@ -521,6 +572,47 @@ def load_config(env: Mapping[str, str] | None = None, **overrides) -> Config:
     if cfg.lineage_tail < 1:
         raise ValueError(
             f"HEATMAP_LINEAGE_TAIL must be >= 1, got {cfg.lineage_tail}")
+    if cfg.shards < 1:
+        raise ValueError(f"HEATMAP_SHARDS must be >= 1, got {cfg.shards}")
+    if not 0 <= cfg.shard_index < cfg.shards:
+        raise ValueError(
+            f"HEATMAP_SHARD_INDEX must be in 0..{cfg.shards - 1}, "
+            f"got {cfg.shard_index}")
+    if cfg.shards > 1:
+        snap_res = min(cfg.resolutions)
+        if not (cfg.shard_res == -1 or 0 <= cfg.shard_res <= snap_res):
+            raise ValueError(
+                f"HEATMAP_SHARD_RES must be -1 or in 0..{snap_res} "
+                f"(the coarsest fold resolution), got {cfg.shard_res}")
+    if cfg.govern_interval_s <= 0:
+        raise ValueError(
+            f"HEATMAP_GOVERN_INTERVAL_S must be > 0, "
+            f"got {cfg.govern_interval_s}")
+    if cfg.govern_min_batch < 64:
+        raise ValueError(
+            f"HEATMAP_GOVERN_MIN_BATCH must be >= 64, "
+            f"got {cfg.govern_min_batch}")
+    if cfg.govern and cfg.govern_min_batch > cfg.batch_size:
+        raise ValueError(
+            f"HEATMAP_GOVERN_MIN_BATCH ({cfg.govern_min_batch}) above "
+            f"BATCH_SIZE ({cfg.batch_size}); the ladder floor cannot "
+            f"exceed its ceiling")
+    if cfg.govern_max_flush_k < 1:
+        raise ValueError(
+            f"HEATMAP_GOVERN_MAX_FLUSH_K must be >= 1, "
+            f"got {cfg.govern_max_flush_k}")
+    if not 0 <= cfg.govern_max_prefetch <= 32:
+        raise ValueError(
+            f"HEATMAP_GOVERN_MAX_PREFETCH must be in 0..32, "
+            f"got {cfg.govern_max_prefetch}")
+    if not 0 < cfg.govern_healthy_frac < 1:
+        raise ValueError(
+            f"HEATMAP_GOVERN_HEALTHY_FRAC must be in (0, 1), "
+            f"got {cfg.govern_healthy_frac}")
+    if not 0 <= cfg.shard_oversample <= 64:
+        raise ValueError(
+            f"HEATMAP_SHARD_OVERSAMPLE must be in 0..64, "
+            f"got {cfg.shard_oversample}")
     object.__setattr__(cfg, "reducers", parse_reducers(
         ",".join(cfg.reducers) if isinstance(cfg.reducers, (tuple, list))
         else cfg.reducers))

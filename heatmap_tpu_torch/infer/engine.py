@@ -90,7 +90,8 @@ _MAX_ANOMALY_BUFFER = 65536
 class InferenceEngine:
     """Per-entity streaming filter + anomaly/forecast policy."""
 
-    def __init__(self, cfg, device="cuda", metrics=None, clock=None):
+    def __init__(self, cfg, device="cuda", metrics=None, clock=None,
+                 partition_snap=None):
         from heatmap_tpu_torch.obs.registry import DEFAULT_TIME_BUCKETS
         from heatmap_tpu_torch.stream.metrics import Metrics
 
@@ -111,15 +112,19 @@ class InferenceEngine:
         self.base_res = (cfg.h3_res if cfg.h3_res in res_list
                          else res_list[0])
         # logical entity partition: HEATMAP_ENTITY_SHARDS logical
-        # shards (0 = the runtime's HEATMAP_SHARDS, which is 1 in the
-        # port); a single-process run with N logical shards applies the
-        # SAME handoff re-seeds as a real N-shard fleet
-        n_part = int(cfg.entity_shards)
+        # shards (0 = the runtime's HEATMAP_SHARDS); a single-process run
+        # with N logical shards applies the SAME handoff re-seeds as a
+        # real N-shard fleet.  ``partition_snap`` is the snap the
+        # runtime's ownership filter reads (None: the host snap), so an
+        # entity's owner is the shard that folds its rows
+        n_part = int(cfg.entity_shards) or int(cfg.shards)
         self.n_part = n_part if n_part > 1 else 1
         self.partition = None
         if n_part > 1:
-            self.partition = ShardMap(n_part, 0, min(res_list),
-                                      cfg.shard_res)
+            idx = cfg.shard_index if cfg.shards > 1 else 0
+            self.partition = ShardMap(n_part, idx, min(res_list),
+                                      cfg.shard_res,
+                                      snap_fn=partition_snap)
         self.table = EntityTable(self.capacity)
         self._lock = threading.Lock()
         self._snap_maps: dict = {}

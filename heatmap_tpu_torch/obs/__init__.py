@@ -21,8 +21,9 @@ The counterpart of ``heatmap_tpu/obs``, all of it host Python:
   write), behind ``heatmap_delivered_age_seconds``, ``/debug/delivery``
   and ``/fleet/delivery`` (``HEATMAP_DELIVERY``);
 - :mod:`xproc` — the file-backed supervisor channel
-  (``HEATMAP_SUPERVISOR_CHANNEL``), the member snapshots and episode
-  broadcasts beside it, and the atomic JSON write;
+  (``HEATMAP_SUPERVISOR_CHANNEL``), the member snapshots, shard
+  watermarks and episode broadcasts beside it, and the atomic JSON
+  write;
 - :mod:`audit` — the integrity observatory (``HEATMAP_AUDIT``): the
   event-conservation ledger and the per-window content digests;
 - :mod:`tsdb` — the telemetry time machine: the member's own exposition

@@ -1,10 +1,10 @@
 """Cross-process fleet channel (file-backed): supervisor counters,
 per-member metrics snapshots, and episode-correlation broadcasts.
 
-A copy of ``heatmap_tpu/obs/xproc.py`` without the shard-watermark files
-(``<channel>.wm-<tag>``), which belong to the sharded runtime (ROADMAP
-A7b).  Every file here is byte-compatible with the reference's, so
-members of either package can share one channel directory.
+A copy of ``heatmap_tpu/obs/xproc.py``, the shard-watermark files
+(``<channel>.wm-<tag>``) included.  Every file here is byte-compatible
+with the reference's, so members of either package can share one
+channel directory.
 
 The supervisor runs the streaming job as a child process; the child
 owns the HTTP /metrics endpoint.  Without a channel, the supervisor's
@@ -350,6 +350,63 @@ def members_from(channel_path: str | None,
             continue
         members[tag] = d
     return members, skipped
+
+
+# ---------------------------------------------------------- shard wm
+# Cross-shard watermark alignment (stream/shardmap.py): each runtime
+# shard publishes its event-time high watermark next to the channel;
+# every shard's effective cutoff is bounded by the fleet LOW watermark
+# (min over fresh peers), so no shard closes (evicts and finalizes) a
+# window that a straggling shard is still folding events into.  The
+# same file-per-writer, atomic-rename, staleness-detectable discipline
+# as every other channel artifact — a dead shard's stale file drops out
+# of the bound after ``max_age_s`` instead of freezing eviction
+# fleet-wide forever.
+
+def shard_watermark_path(channel_path: str, tag: str) -> str:
+    return f"{channel_path}.wm-{tag}"
+
+
+def publish_shard_watermark(channel_path: str, tag: str,
+                            max_event_ts: int) -> None:
+    """Atomic write of one shard's event-time high watermark; unwritable
+    degrades to a warning (telemetry never takes a shard down)."""
+    payload = {"max_event_ts": int(max_event_ts),
+               "updated_unix": round(time.time(), 3)}
+    try:
+        atomic_write_json(shard_watermark_path(channel_path, tag), payload)
+    except OSError as e:
+        log.warning("shard watermark publish failed: %s", e)
+
+
+def shard_watermarks_from(channel_path: str | None,
+                          max_age_s: float | None = None) -> dict:
+    """{tag: max_event_ts} for every FRESH shard watermark next to the
+    channel; {} when no channel / none published.  Stale, torn, or
+    corrupt files are skipped (never raised): a wedged shard must
+    eventually release the fleet low bound, and a sick file must not
+    take the step loop down."""
+    if not channel_path:
+        return {}
+    if max_age_s is None:
+        max_age_s = fleet_max_age_s()
+    import glob
+
+    now = time.time()
+    out: dict = {}
+    for p in sorted(glob.glob(glob.escape(channel_path) + ".wm-*")):
+        tag = p.rsplit(".wm-", 1)[1]
+        if ".tmp" in tag:  # in-flight atomic write of any publisher
+            continue
+        d = SupervisorChannel.load(p)
+        ts = d.get("max_event_ts")
+        upd = d.get("updated_unix")
+        if not isinstance(ts, (int, float)) \
+                or not isinstance(upd, (int, float)) \
+                or now - upd > max_age_s:
+            continue
+        out[tag] = int(ts)
+    return out
 
 
 # -------------------------------------------------------------- episode

@@ -161,7 +161,7 @@ def main(argv=None) -> int:
     # so this worker's member snapshot departs as a tombstone instead of
     # going stale on the channel
     signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(0))
-    store = make_store(cfg)
+    store = make_store(cfg, writer=False)
     try:
         serve_forever(store, cfg, host=host, port=port,
                       reuse_port=os.environ.get(

@@ -584,8 +584,20 @@ def healthz_payload(runtime, extra_checks=None) -> tuple[dict, bool]:
             checks["event_age_p50_ms"] = {"value": round(p50_ms, 3),
                                           "budget": budget, "ok": ok}
             degraded |= not ok
-        # the reference's fastpath_pinned warning: the port's runtime
-        # pins no fast-path knob down (one device, no mesh or governor)
+        # the reference's fastpath_pinned warning: the one-device port
+        # pins no fast-path knob down
+        gov = getattr(runtime, "governor", None)
+        if gov is not None:
+            # the governor's guardrail (stream/govern.py): a frozen
+            # governor degrades, naming the latched bucket (its knobs are
+            # pinned; the pipeline keeps running)
+            ok = not gov.frozen
+            checks["govern_frozen"] = {
+                "value": (f"frozen: {gov.frozen_why} "
+                          f"(bucket {gov.latched_bucket} latched)"
+                          if gov.frozen else "active"),
+                "ok": ok}
+            degraded |= not ok
         audit = getattr(runtime, "audit", None)
         if audit is not None:
             # the integrity observatory (obs.audit, HEATMAP_AUDIT=1): a

@@ -13,17 +13,28 @@ from heatmap_tpu_torch.sink.memory import MemoryStore  # noqa: F401
 from heatmap_tpu_torch.sink.writer import AsyncWriter  # noqa: F401
 
 
-def make_store(cfg) -> Store:
+def make_store(cfg, writer: bool = True) -> Store:
     """Store factory honoring HEATMAP_STORE (auto | memory | jsonl | mongo):
     jsonl writes ``<checkpoint_dir>/store.jsonl``; mongo connects to
     ``mongo_uri``/``mongo_db``; auto takes Mongo when a server answers at
     ``mongo_uri``, else the in-memory store (the reference's documented
-    behaviour)."""
+    behaviour).
+
+    Under ``HEATMAP_SHARDS`` > 1 the jsonl log is per shard, since the
+    log has one writer (its close compacts the file from that process's
+    view): a shard writer gets ``<checkpoint_dir>/shard<i>/store.jsonl``,
+    the namespace its checkpoints use, and ``writer=False`` (a serve-only
+    process) loads the union of every shard's log."""
     kind = cfg.store
     if kind == "memory":
         return MemoryStore()
     if kind == "jsonl":
-        return JsonlStore(cfg.checkpoint_dir)
+        directory = cfg.checkpoint_dir
+        if cfg.shards > 1:
+            if writer:
+                return JsonlStore(f"{directory}/shard{cfg.shard_index}")
+            return JsonlStore(directory, merge_shard_logs=True)
+        return JsonlStore(directory)
     from heatmap_tpu_torch.sink.mongo import MongoStore
 
     if kind == "mongo":

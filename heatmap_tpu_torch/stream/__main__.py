@@ -11,7 +11,7 @@ directory that ``CHECKPOINT`` names (default ``heatmap-checkpoint`` under
 the temp directory, ``TMPDIR``, read with the rest of the environment when
 the pipelines are built) and resumes from its latest commit; then prints
 the run's metrics (the source's transport counters and the writer's among
-them) as one JSON line.  Every run that must not resume another's commits
+them, its wall seconds and the kernels' launches) as one JSON line.  Every run that must not resume another's commits
 needs its own ``CHECKPOINT``.
 
 The live pipelines (``mbta_default``, ``opensky_global``, ``hex_pyramid``,
@@ -21,6 +21,15 @@ an unbounded synthetic stream; they run until ``--max-batches`` batches
 are folded (or forever).  ``synthetic_backfill`` ends with its 10M events.
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no ``--device cpu`` it raises.
+
+``--supervise`` runs the job as a child of a supervisor
+(``stream.supervisor``), which restarts it from its checkpoint when it
+crashes or when its heartbeat stalls; ``--supervise --shards N`` runs N
+H3-partitioned shard children (``HEATMAP_SHARDS``, ``HEATMAP_SHARD_INDEX``
+set per child), each folding a disjoint cell space.  The policy comes from
+``HEATMAP_SUPERVISE_*``.  The supervising parent imports no ``torch`` and
+touches no device; each child runs with the parent's ``--device`` and
+``--max-batches``.
 
 With ``HEATMAP_FLIGHTREC_DIR`` set, SIGTERM becomes ``SystemExit(143)``
 in the main thread, so the runtime's close sees the unwinding exit and
@@ -33,6 +42,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import time
 
 from heatmap_tpu_torch.models.pipelines import PIPELINES, get_pipeline
 
@@ -105,17 +116,69 @@ def main(argv=None) -> dict:
                     help="stop after this many folded batches (bounds the "
                          "live pipelines' unbounded sources)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--supervise", action="store_true",
+                    help="run the job as a supervised child: restart on "
+                         "crash and on heartbeat stall, resuming from the "
+                         "checkpoint; policy via HEATMAP_SUPERVISE_* "
+                         "(stream/supervisor.py)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="with --supervise: fan out N H3-partitioned "
+                         "runtime shard children (stream/shardmap.py), "
+                         "each folding a disjoint cell space into the "
+                         "shared store; defaults to HEATMAP_SHARDS (1)")
     args = ap.parse_args(argv)
+    shards = (args.shards if args.shards is not None
+              else int(os.environ.get("HEATMAP_SHARDS", "1") or 1))
+    if args.shards is not None and args.shards > 1 and not args.supervise:
+        # only the supervisor fans out a fleet; one shard of a fleet run
+        # by hand is configured with HEATMAP_SHARDS + HEATMAP_SHARD_INDEX
+        raise SystemExit("--shards needs --supervise (the fleet "
+                         "supervisor spawns one child per shard)")
+    if args.shards == 1 and args.supervise:
+        # an explicit --shards 1 wins over an inherited fleet env: the
+        # single-child supervisor passes the env through unchanged
+        os.environ["HEATMAP_SHARDS"] = "1"
+        os.environ["HEATMAP_SHARD_INDEX"] = "0"
+    if args.supervise:
+        # the parent runs no device op: each child reaches the card
+        import logging
+        import sys
+
+        from heatmap_tpu_torch.stream.supervisor import supervise_cli
+
+        logging.basicConfig(
+            level=logging.INFO,
+            format="%(asctime)s %(levelname)s %(name)s %(message)s")
+        child = [sys.executable, "-m", "heatmap_tpu_torch.stream",
+                 args.pipeline, "--device", args.device]
+        if args.max_batches is not None:
+            child += ["--max-batches", str(args.max_batches)]
+        raise SystemExit(supervise_cli(child, shards=shards))
     from heatmap_tpu_torch.sink import make_store
 
     store = make_store(get_pipeline(args.pipeline).config)
     try:
         rt, _ = build_runtime(args.pipeline, args.device, store=store)
         install_flightrec_handlers(rt)
+        from heatmap_tpu_torch.hexgrid import snap_kernel
+        from heatmap_tpu_torch.infer import kalman
+
+        # the launches of the run alone: construction may launch too (the
+        # governor's ladder warm-up dispatches once a bucket)
+        snap_kernel.latlng_to_cell_kernel.launches = 0
+        kalman.kalman_rounds.launches = 0
+        t0 = time.monotonic()
         rt.run(max_batches=args.max_batches)
         out = {"pipeline": args.pipeline, "device": str(rt.device),
                "source": type(rt.source).__name__,
-               "store": type(store).__name__, **rt.metrics,
+               "store": type(store).__name__,
+               # the run's wall seconds (construction excluded, the close
+               # included) and the kernels' launches in it
+               "wall_s": time.monotonic() - t0,
+               "snap_launches": snap_kernel.latlng_to_cell_kernel.launches,
+               "kalman_launches": kalman.kalman_rounds.launches,
+               "shard_index": rt.cfg.shard_index, "shards": rt.cfg.shards,
+               **rt.metrics,
                # docs held, where the store keeps them in this process
                # (memory, jsonl); the writer's counters count every store
                "tiles": getattr(store, "n_tiles", None),

@@ -160,6 +160,25 @@ def empty_columns(providers=None, vehicles=None) -> EventColumns:
     )
 
 
+def take_columns(cols: EventColumns, idx: np.ndarray) -> EventColumns:
+    """Row subset of a batch by index array, order preserved (string
+    tables shared; n_dropped stays with the subset — validation counts
+    were booked before any ownership filter ran)."""
+    return EventColumns(
+        lat_rad=cols.lat_rad[idx],
+        lng_rad=cols.lng_rad[idx],
+        lat_deg=cols.lat_deg[idx],
+        lng_deg=cols.lng_deg[idx],
+        speed_kmh=cols.speed_kmh[idx],
+        ts_s=cols.ts_s[idx],
+        provider_id=cols.provider_id[idx],
+        vehicle_id=cols.vehicle_id[idx],
+        providers=cols.providers,
+        vehicles=cols.vehicles,
+        n_dropped=cols.n_dropped,
+    )
+
+
 def slice_columns(cols: EventColumns, start: int, stop: int) -> EventColumns:
     """Row slice of a batch (string tables shared, n_dropped stays with
     the head slice so counts aren't double-booked)."""

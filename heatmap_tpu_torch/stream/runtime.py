@@ -122,8 +122,28 @@ runtime publishes its member snapshot beside the channel on the step loop
 (``_publish_member_snapshot``, at most every ``HEATMAP_FLEET_PUBLISH_S``,
 and at close, a clean one as a departure tombstone) and its freshness
 summary from the writer thread, and its SLO watchdog and burn-rate engine
-correlate their dumps under the fleet's episodes.  The mesh, the sharded
-runtime and the supervisor process of the reference are not ported yet.
+correlate their dumps under the fleet's episodes.
+
+With ``HEATMAP_SHARDS`` > 1 this process is one shard of an H3-partitioned
+fleet (``stream.shardmap``; ``python -m heatmap_tpu_torch.stream
+--supervise --shards N`` runs the fleet): each poll takes
+``HEATMAP_SHARD_OVERSAMPLE`` feed batches of rows, the ownership filter
+keeps the rows whose cell (the fold's own snap) this shard owns, in
+order, and the rest count as ``out_of_shard``/``oversample`` drops; the
+watermark still advances from the rows before the filter, and a batch
+whose rows are all foreign still dispatches, empty.  A shard commits
+under ``<CHECKPOINT>/shard<i>``, tags itself ``shard<i>``, keeps no view
+of its own (``view=`` fans several shards into one), and with a
+supervisor channel publishes its watermark beside it and holds its
+cutoff at the fleet's low bound (``_effective_max_ts``, never moving
+back).  Under ``HEATMAP_HEARTBEAT_FILE`` the step loop writes the
+supervisor's liveness beacon after each step (``_touch_heartbeat``), kept
+alive through a long step by a watchdog thread for up to
+``HEATMAP_DISPATCH_GRACE_S``.  With ``HEATMAP_GOVERN`` a
+``stream.govern.BatchGovernor`` moves the live feed batch
+(``_feed_batch``, along a ladder of pad buckets each dispatched once at
+startup), the ring's flush-K and the prefetch depth at step boundaries.
+The mesh of the reference (``parallel/``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -154,6 +174,7 @@ from heatmap_tpu_torch.stream.checkpoint import CheckpointManager
 from heatmap_tpu_torch.stream.events import (EventColumns, parse_events,
                                              slice_columns)
 from heatmap_tpu_torch.stream.metrics import Metrics
+from heatmap_tpu_torch.stream.shardmap import ShardMap, join_words
 from heatmap_tpu_torch.stream.source import Source
 from heatmap_tpu_torch.stream.trace import Tracer
 
@@ -186,6 +207,8 @@ class _FeedBatch(NamedTuple):
                          # the source's own poll sub-spans (fetch, decode)
                          # when it has them
     lineage: dict | None  # the freshness lineage record opened at poll
+    wm_ts: np.ndarray | None  # a shard's poll before the ownership
+                              # filter: the watermark advances from it
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -232,7 +255,8 @@ def _dir_bytes(path: str) -> int:
 class MicroBatchRuntime:
     def __init__(self, cfg: Config, source: Source, store: Store,
                  device: str | torch.device = "cuda",
-                 checkpoint_every: int = 20, positions_enabled: bool = True):
+                 checkpoint_every: int = 20, positions_enabled: bool = True,
+                 view=None):
         self.cfg = cfg
         self.source = source
         self.store = store
@@ -287,6 +311,10 @@ class MicroBatchRuntime:
         self.max_event_ts = I32_MIN
         self._last_flush_cutoff = I32_MIN  # watermark-pressure tracking
         self._ring = EmitRing(cfg.emit_flush_k)
+        # the live feed shape and prefetch depth: the config's values,
+        # which the governor moves (_govern_step)
+        self._feed_batch = cfg.batch_size
+        self._prefetch_n = max(0, cfg.prefetch_batches)
         self._prefix_pull = (self.device.type == "cuda"
                              if cfg.emit_pull == "auto"
                              else cfg.emit_pull == "prefix")
@@ -316,13 +344,38 @@ class MicroBatchRuntime:
         if resolve_snap_route(self._h3_env, self.device,
                               cfg.resolutions) == "native":
             self._use_host_snap()
-        # a batch-granular poll's rows past the batch, folded next
+        # H3-parent stream partitioning (stream/shardmap.py): with
+        # HEATMAP_SHARDS > 1 this process folds only the cell space its
+        # shard owns, the owner read from the cell the fold keys the row
+        # with (_fold_cells); None when unsharded
+        self.shardmap = ShardMap.from_config(cfg, snap_fn=self._fold_cells)
+        self._shard_oversample = 1
+        if self.shardmap is not None:
+            self._shard_oversample = cfg.shard_oversample or cfg.shards
+            log.info("sharded runtime: %s, oversample %d",
+                     self.shardmap.describe(), self._shard_oversample)
+        self._shard_wm_pub_last = 0.0   # aligned-watermark publish limit
+        self._shard_wm_read_last = 0.0  # aligned-watermark read cache
+        self._shard_wm_floor = None     # cached fleet low bound
+        self._shard_wm_eff_last = I32_MIN  # monotone cutoff floor
+        # the supervisor's liveness beacon (HEATMAP_HEARTBEAT_FILE)
+        self._step_began = None   # monotonic start of the step in flight
+        self._hb_last = 0.0       # last beacon write (monotonic)
+        self._hb_stop: threading.Event | None = None
+        self._hb_watchdog: threading.Thread | None = None
+        # a batch-granular poll's rows past the batch, folded next, and
+        # their ownership cells (a shard's native-route keys)
         self._carry_cols: EventColumns | None = None
+        self._carry_shard_cells: np.ndarray | None = None
         self._carried_last = False  # the last dispatch left rows carried
         self._ckpt_due = False      # cadence hit while carrying
         # checkpoints: the commit runs on a background thread; its error
         # surfaces on the step thread at the next join
-        self.ckpt = CheckpointManager(cfg.checkpoint_dir)
+        # a shard commits under its own namespace, so a restarted shard
+        # resumes and replays only its own stream position
+        self.ckpt = CheckpointManager(
+            f"{cfg.checkpoint_dir}/shard{cfg.shard_index}"
+            if self.shardmap is not None else cfg.checkpoint_dir)
         self._ckpt_thread: threading.Thread | None = None
         self._ckpt_err: BaseException | None = None
         # one record per commit: epoch, capture ms on the step thread, and
@@ -334,10 +387,13 @@ class MicroBatchRuntime:
         # port's names
         self.telemetry = Metrics()
         self.registry = self.telemetry.registry
-        # this member's tag: lineage ids, the quality observatory and the
-        # telemetry history's directory carry it (the reference's
-        # single-process runtime takes "p0")
-        self._fresh_tag = os.environ.get(ENV_FLEET_TAG) or "p0"
+        # this member's tag: lineage ids, the quality observatory, the
+        # telemetry history's directory and the shard watermark file
+        # carry it (the reference's single-process runtime takes "p0", a
+        # shard "shard<i>", so two shards never share a member file)
+        self._fresh_tag = os.environ.get(ENV_FLEET_TAG) or (
+            f"shard{cfg.shard_index}" if self.shardmap is not None
+            else "p0")
         # rate limits of the channel publishes (per-child freshness on the
         # writer thread, the member snapshot on the step loop)
         self._fresh_pub_last = 0.0
@@ -347,8 +403,8 @@ class MicroBatchRuntime:
         # emit pulls: flushes in all and by trigger, batches and bytes
         # pulled (these depend on K, the counters above do not)
         self.pulls = {"flushes": 0, "full": 0, "watermark": 0, "grow": 0,
-                      "checkpoint": 0, "idle": 0, "close": 0, "batches": 0,
-                      "bytes": 0}
+                      "checkpoint": 0, "idle": 0, "close": 0, "govern": 0,
+                      "batches": 0, "bytes": 0}
         self.batch_ms: list[float] = []
         # per-batch spans (ms) on the host clock: poll and feed (pad + H2D
         # enqueue) of the batch dispatched, whichever step paid them; pull
@@ -397,7 +453,8 @@ class MicroBatchRuntime:
             from heatmap_tpu_torch.infer import InferenceEngine
 
             self.infer = InferenceEngine(cfg, device=self.device,
-                                         metrics=self.telemetry)
+                                         metrics=self.telemetry,
+                                         partition_snap=self._fold_cells)
         self._maybe_resume()
         # offsets as of the last DISPATCHED batch: checkpoints commit
         # these, so a batch polled but not dispatched always replays
@@ -405,8 +462,14 @@ class MicroBatchRuntime:
         # the materialized tile view the writer thread feeds, under
         # HEATMAP_QUERY_VIEW; no store scan here: the serve layer seeds
         # a grid the view has not seen from the store on first access
+        # A shard keeps no view of its own: it sinks only its cell space,
+        # so a process-local view would serve a partial city; a caller
+        # passes ``view=`` to fan several shards into one shared view
+        # (cell spaces are disjoint, so the merge is upsert-only)
         self.matview = None
-        if cfg.query_view:
+        if view is not None:
+            self.matview = view
+        elif cfg.query_view and self.shardmap is None:
             from heatmap_tpu_torch.query import TileMatView
 
             # under HEATMAP_AUDIT the view keeps a per-window digest table
@@ -426,10 +489,12 @@ class MicroBatchRuntime:
         # set, every view mutation the writer thread applies is
         # published to the feed, so serve-only replicas
         # (HEATMAP_REPL_FEED) hold a hot seq-consistent copy with zero
-        # steady-state store reads.
+        # steady-state store reads.  Only a self-owned view publishes: a
+        # shared fan-in view gets one publisher from its owner, never one
+        # a shard.
         self.repl_pub = None
         self.hist_compactor = None
-        if self.matview is not None and cfg.repl_dir:
+        if self.matview is not None and view is None and cfg.repl_dir:
             from heatmap_tpu_torch.query.repl import DeltaLogPublisher
 
             # space-time history tier (query/history.py,
@@ -503,6 +568,32 @@ class MicroBatchRuntime:
         self.writer = AsyncWriter(store, metrics=self.telemetry,
                                   view=self.matview, audit=self.audit)
         self._init_introspection()
+        # adaptive micro-batching (stream/govern.py): under HEATMAP_GOVERN
+        # the static batch, flush-K and prefetch knobs become initial
+        # values that a feedback governor moves at step boundaries.
+        # Built after the resume, so a restored and grown slab is warmed
+        # at its final shape
+        self.governor = None
+        if cfg.govern:
+            from heatmap_tpu_torch.stream.govern import BatchGovernor
+
+            gov = BatchGovernor(
+                cfg, self.registry,
+                event_age=self.telemetry.event_age.labels(bound="mean"),
+                compile_tracker=self.runtimeinfo.compile,
+                memory=self.runtimeinfo.memory)
+            # the ladder's dispatches below run through the instrumented
+            # step before steady state: widen the tracker's warmup so
+            # they never read as post-warmup builds
+            self.runtimeinfo.compile.warmup += len(gov.ladder)
+            self._warm_ladder(gov.ladder)
+            # re-baseline after warming: a build from here on freezes it
+            gov._retrace_base = gov._retraces()
+            self.governor = gov
+            if self.flightrec is not None:
+                self.flightrec.add_source(
+                    "govern", lambda: (self.governor.snapshot()
+                                       if self.governor else None))
         # the metrics snapshot the step thread publishes at each batch end
         # (metrics_snapshot); HTTP threads read it under this lock
         self._snap_lock = threading.Lock()
@@ -647,6 +738,38 @@ class MicroBatchRuntime:
             "heatmap_emit_ring_pending",
             "packed emit batches parked on device awaiting the next flush",
             fn=lambda: len(self._ring))
+        # the reference's fast-path pin (a knob pinned down for a
+        # topology: multi-host lockstep, a governor the topology cannot
+        # take); the one-device port pins nothing, so the family has no
+        # child
+        self.telemetry.gauge(
+            "heatmap_fastpath_pinned",
+            "1 per reason the runtime pinned fast-path knobs down "
+            "(emit_flush_k=1 / prefetch_batches=0 for multi-host "
+            "lockstep, a governor request the topology cannot honor) — "
+            "a run silently serving degraded throughput is diagnosable "
+            "from telemetry",
+            labels=("reason",))
+        self._g_shard_wm_lag = None
+        if self.shardmap is not None:
+            self.telemetry.gauge(
+                "heatmap_shard_index",
+                "this runtime's shard in the H3-partitioned fleet "
+                "(stream/shardmap.py)").set(cfg.shard_index)
+            self.telemetry.gauge(
+                "heatmap_shard_count",
+                "total runtime shards partitioning the stream "
+                "(HEATMAP_SHARDS)").set(cfg.shards)
+            # own watermark minus the fleet low bound: how far this shard
+            # runs ahead of the slowest peer (0 when aligned or without a
+            # channel; the cutoff is held at the low bound either way)
+            self._g_shard_wm_lag = self.telemetry.gauge(
+                "heatmap_shard_watermark_lag_seconds",
+                "this shard's event-time high watermark minus the "
+                "fleet's low watermark bound (how far ahead of the "
+                "slowest shard this one runs; 0 when aligned or "
+                "channel-less)")
+            self._g_shard_wm_lag.set(0.0)
         self.runtimeinfo = RuntimeIntrospection(
             self.registry, ring_bytes_fn=lambda: self._ring.nbytes,
             live_bytes_fn=self._held_bytes, device=self.device)
@@ -674,6 +797,29 @@ class MicroBatchRuntime:
         from heatmap_tpu_torch.hexgrid import native_snap
 
         self._host_snap = native_snap.host_snap()
+
+    def _fold_cells(self, lat_rad: np.ndarray, lng_rad: np.ndarray,
+                    res: int) -> np.ndarray:
+        """uint64 cells at ``res`` from the snap that keys this run's
+        fold: the host snap on the native route, else the in-program snap
+        (the fused kernel on the card, on the copy stream, so only that
+        stream is waited for; its plain version on the CPU).  The shard
+        map's ownership reads these, so a row belongs to the shard whose
+        space its fold cell lies in, even at a cell edge where the host
+        and the kernel snaps disagree."""
+        if self._host_snap is not None:
+            hi, lo = self._host_snap.snap(lat_rad, lng_rad, res)
+            return join_words(hi, lo)
+        lat = torch.from_numpy(np.ascontiguousarray(lat_rad, np.float32))
+        lng = torch.from_numpy(np.ascontiguousarray(lng_rad, np.float32))
+        snap = step._snap_impl(res)
+        if self._copy_stream is None:
+            hi, lo = snap(lat, lng, res)
+        else:
+            with torch.cuda.stream(self._copy_stream):
+                hi, lo = snap(lat.to(self.device), lng.to(self.device), res)
+                hi, lo = hi.cpu(), lo.cpu()
+        return join_words(hi.numpy(), lo.numpy())
 
     def _pin_snap_impl(self, ck_snap: str | None) -> None:
         """Keep the snap fixed across a resume, as the reference's
@@ -863,7 +1009,7 @@ class MicroBatchRuntime:
         out["state_grown"] = c["state_grown"]
         out["checkpoints"] = c["checkpoints"]
         for k in ("state_overflow_last_epoch", "infer_events_folded",
-                  "infer_entities_untracked"):
+                  "infer_entities_untracked", "events_out_of_shard"):
             if k in c:
                 out[k] = c[k]
         return out
@@ -932,21 +1078,44 @@ class MicroBatchRuntime:
         dispatched."""
         t0 = time.monotonic()
         src_spans = {}
+        wm_ts = shard_cells = None
         if self._carry_cols is not None:
             # the carried rows bill their wait since the original poll as
             # lineage queue time
             cols, self._carry_cols = self._carry_cols, None
+            shard_cells, self._carry_shard_cells = \
+                self._carry_shard_cells, None
             t_polled = self._carry_polled_at
         else:
-            polled = self.source.poll(self.cfg.batch_size)
+            polled = self.source.poll(
+                self._feed_batch * self._shard_oversample)
             src_spans = self.source.take_spans()
             cols = self._build_batch(polled)
             t_polled = self.lineage.clock()
             if cols is None:
                 return None
-        size = self.cfg.batch_size
+            if self.shardmap is not None:
+                # the ownership filter: foreign rows drop here, before the
+                # pad, under a closed reason; the watermark still
+                # advances from the rows before it (wm_ts), so the cutoff
+                # sequence is the unsharded fold's.  A batch of foreign
+                # rows only still dispatches, empty: the offsets advance
+                # and the dispatch count matches the unsharded run's
+                t_f = time.monotonic()
+                wm_ts = cols.ts_s
+                cols, n_foreign, shard_cells = \
+                    self.shardmap.filter_columns(cols)
+                if n_foreign:
+                    self.telemetry.drop(
+                        "oversample" if self._shard_oversample > 1
+                        else "out_of_shard", n_foreign)
+                src_spans["shard_filter"] = time.monotonic() - t_f
+        size = self._feed_batch
         if len(cols) > size:
             self._carry_cols = slice_columns(cols, size, len(cols))
+            if shard_cells is not None:
+                self._carry_shard_cells = shard_cells[size:]
+                shard_cells = shard_cells[:size]
             self._carry_polled_at = t_polled
             cols = slice_columns(cols, 0, size)
         n = len(cols)
@@ -988,8 +1157,15 @@ class MicroBatchRuntime:
             # by the fold's valid lane
             t_snap = time.monotonic()
             for res in self.multi._uniq_res:
-                hi, lo = self._host_snap.snap(cols.lat_rad, cols.lng_rad,
-                                              res)
+                if (shard_cells is not None
+                        and res == self.shardmap.snap_res):
+                    # the ownership filter's host cells are this
+                    # resolution's keys: no second snap
+                    hi = (shard_cells >> np.uint64(32)).astype(np.uint32)
+                    lo = shard_cells.astype(np.uint32)
+                else:
+                    hi, lo = self._host_snap.snap(cols.lat_rad,
+                                                  cols.lng_rad, res)
                 for name, words in (("hi", hi), ("lo", lo)):
                     buf = torch.zeros(size, dtype=torch.int32,
                                       pin_memory=pin)
@@ -1012,7 +1188,7 @@ class MicroBatchRuntime:
         return _FeedBatch(cols=cols, n=n, feed=feed, host=host,
                           ready=ready, offset=offset,
                           carried=self._carry_cols is not None, spans=spans,
-                          lineage=lin)
+                          lineage=lin, wm_ts=wm_ts)
 
     def _host_batch_max_ts(self, ts_s: np.ndarray) -> int:
         """Watermark advance for one batch, computed on the host with the
@@ -1139,7 +1315,8 @@ class MicroBatchRuntime:
     def flush_pending(self, reason: str = "close") -> tuple[float, float]:
         """Pull and account every batch parked in the emit ring, in order:
         one pull for up to K batches.  ``reason`` names the trigger (full,
-        watermark, grow, checkpoint, idle, close).  Returns the seconds
+        watermark, grow, checkpoint, idle, close, govern: a flush-K
+        change).  Returns the seconds
         spent pulling and handing the rows to the writer."""
         if self.writer.poisoned:
             # the writer dropped a write of an earlier flush, whose batches
@@ -1277,23 +1454,167 @@ class MicroBatchRuntime:
             log.warning("fleet member snapshot publish failed",
                         exc_info=True)
 
+    # ------------------------------------------------------- shard fleet
+    def _effective_max_ts(self) -> int:
+        """The event-time high watermark the fold's cutoff derives from.
+
+        Unsharded and channel-less runs: this process's ``max_event_ts``.
+        A shard with a supervisor channel: its own max bounded by the
+        fleet's low watermark, the min over every fresh peer's published
+        watermark (``obs.xproc.shard_watermarks_from``, read at most 1/s),
+        so no shard closes a window a straggling peer still folds into; a
+        peer whose file goes stale past ``HEATMAP_FLEET_MAX_AGE_S`` drops
+        out of the bound.  Monotone: alignment only holds a cutoff back,
+        never rolls it back (a peer resumed from an older checkpoint
+        republishes an older watermark; without the clamp this shard
+        would re-admit rows into windows it already evicted, and their
+        partial counts would upsert over complete tile docs)."""
+        own = self.max_event_ts
+        if self.shardmap is None or own <= I32_MIN:
+            return own
+        from heatmap_tpu_torch.obs.xproc import (ENV_CHANNEL,
+                                                 shard_watermarks_from)
+
+        path = os.environ.get(ENV_CHANNEL)
+        if not path:
+            return own
+        now = time.monotonic()
+        if now - self._shard_wm_read_last >= 1.0:
+            self._shard_wm_read_last = now
+            wms = shard_watermarks_from(path)
+            wms.pop(self._fresh_tag, None)  # own max is live, not a file
+            self._shard_wm_floor = min(wms.values()) if wms else None
+        floor = self._shard_wm_floor
+        eff = own if floor is None else min(own, int(floor))
+        eff = max(eff, self._shard_wm_eff_last)
+        self._shard_wm_eff_last = eff
+        if self._g_shard_wm_lag is not None:
+            self._g_shard_wm_lag.set(max(0, own - eff))
+        return eff
+
+    def _publish_shard_watermark(self) -> None:
+        """Publish this shard's own high watermark beside the channel (at
+        most 1/s) so peers can hold their cutoffs at the fleet's low
+        bound; nothing without a channel or when unsharded."""
+        if self.shardmap is None or self.max_event_ts <= I32_MIN:
+            return
+        from heatmap_tpu_torch.obs.xproc import (ENV_CHANNEL,
+                                                 publish_shard_watermark)
+
+        path = os.environ.get(ENV_CHANNEL)
+        if not path:
+            return
+        now = time.monotonic()
+        if now - self._shard_wm_pub_last < 1.0:
+            return
+        self._shard_wm_pub_last = now
+        publish_shard_watermark(path, self._fresh_tag, self.max_event_ts)
+
+    # ---------------------------------------------------------- governor
+    def _warm_ladder(self, ladder) -> None:
+        """Dispatch the fold once at every governor pad bucket, before
+        the first batch: one all-invalid batch a bucket through the
+        instrumented step, its results thrown away.  Every row masked
+        invalid makes the fold an identity on the state (no key mints,
+        nothing emits, cutoff I32_MIN evicts nothing), and the ring, the
+        epoch and the offsets are not touched.  Eager PyTorch has no
+        per-shape program to compile; the dispatches build the kernel
+        libraries the fold loads and let the caching allocator and the
+        pinned staging see each shape before the governor moves."""
+        t0 = time.monotonic()
+        for n in ladder:
+            zf = torch.zeros(n, dtype=torch.float32, device=self.device)
+            ts = torch.zeros(n, dtype=torch.int32, device=self.device)
+            valid = torch.zeros(n, dtype=torch.bool, device=self.device)
+            prekeys = None
+            if self._host_snap is not None:
+                z = torch.zeros(n, dtype=torch.int32, device=self.device)
+                prekeys = {r: (z, z) for r in self.multi._uniq_res}
+            self.multi.step_packed_all(zf, zf, zf, ts, valid, I32_MIN,
+                                       prekeys=prekeys)
+        log.info("governor bucket ladder warmed: %s rows (%.2fs)",
+                 ladder, time.monotonic() - t0)
+
+    def _govern_step(self) -> None:
+        """Apply the governor's decisions at a step boundary: the feed
+        reads ``_feed_batch`` at each poll (each entry keeps its own
+        offset, so commits stay dispatch-aligned across size changes); a
+        flush-K change flushes the ring first, so its entries drain
+        under the old interval; the prefetch refill reads
+        ``_prefetch_n``."""
+        gov = self.governor
+        gov.check_retrace()
+        gov.decide()
+        self._feed_batch = gov.batch_rows
+        k = gov.flush_k
+        if k != self._ring.capacity:
+            self.flush_pending("govern")
+            self._ring.capacity = max(1, int(k))
+        self._prefetch_n = gov.prefetch
+
+    # --------------------------------------------------------- heartbeat
+    def _touch_heartbeat(self) -> None:
+        """The supervisor's liveness beacon (stream.supervisor): write
+        the wall time into ``HEATMAP_HEARTBEAT_FILE`` at most once a
+        second, from the step loop, so a wedged device op stops it.  The
+        first write starts the in-flight watchdog, which keeps the
+        beacon alive through a long step for up to
+        ``HEATMAP_DISPATCH_GRACE_S`` (default 300 s); before the first
+        completed step the supervisor's startup grace applies."""
+        path = os.environ.get("HEATMAP_HEARTBEAT_FILE")
+        if not path:
+            return
+        now = time.monotonic()
+        if now - self._hb_last < 1.0:
+            return
+        self._hb_last = now
+        self._hb_write(path)
+        if self._hb_watchdog is None:
+            self._hb_stop = threading.Event()
+            self._hb_watchdog = threading.Thread(
+                target=self._hb_watchdog_loop, args=(path,),
+                name="heartbeat", daemon=True)
+            self._hb_watchdog.start()
+
+    def _hb_write(self, path: str) -> None:
+        try:
+            with open(path, "w", encoding="utf-8") as fh:
+                fh.write(f"{time.time():.3f} epoch={self.epoch}\n")
+        except OSError:  # the beacon never takes the pipeline down
+            pass
+
+    def _hb_watchdog_loop(self, path: str) -> None:
+        grace = float(os.environ.get("HEATMAP_DISPATCH_GRACE_S", "300"))
+        while not self._hb_stop.wait(1.0):
+            began = self._step_began
+            if began is not None and time.monotonic() - began < grace:
+                self._hb_write(path)
+
     def step_once(self) -> bool:
         """Fold one batch (the prefetched one, else a fresh poll); False
         when the source had nothing (an idle poll, which flushes the
         parked batches).  Runs inside the profiler window's batch, and
         samples device memory at 1 Hz."""
+        self._step_began = time.monotonic()
         try:
             with self.tracer.batch(self.epoch):
                 return self._step_once_inner()
         finally:
+            self._step_began = None
             self.runtimeinfo.memory.sample(min_interval_s=1.0)
 
     def _step_once_inner(self) -> bool:
         t0 = time.monotonic()
+        if self.governor is not None:
+            # the control step and its decisions at the step boundary:
+            # the poll below reads the (possibly resized) bucket
+            self._govern_step()
         entry = (self._prefetched.popleft() if self._prefetched
                  else self._next_batch())
         if entry is None:
             self.flush_pending("idle")
+            if self.governor is not None:
+                self.governor.note_idle()
             self._publish_snapshot()
             return False
         pull_s = sink_s = 0.0
@@ -1302,9 +1623,15 @@ class MicroBatchRuntime:
                   else "watermark" if self._wm_flush_due()
                   else "grow" if grow_due else None)
         if reason is not None:
+            if grow_due and self.governor is not None:
+                # the growth-pressure flush steps the governor's flush-K
+                # down: parked batches held unaccounted minting
+                self.governor.note_growth_pressure()
             pull_s, sink_s = self.flush_pending(reason)
             self._maybe_grow()
-        cutoff = self._cutoff()
+        wm_max = self._effective_max_ts()
+        cutoff = (wm_max - self.cfg.watermark_minutes * 60
+                  if wm_max > I32_MIN else I32_MIN)
         infer_s = None
         if self.infer is not None:
             # after the ring flush, before the dispatch, as in the
@@ -1351,6 +1678,8 @@ class MicroBatchRuntime:
         if events is not None:
             events[1].record()
         self._ring.append(packed, self.epoch)
+        if self.governor is not None:
+            self.governor.note_dispatch(entry.n)
         if self.audit is not None and entry.n:
             # rows entering the fold; its counts arrive with the flush,
             # so the gap between reads as a draining residual
@@ -1365,8 +1694,10 @@ class MicroBatchRuntime:
             # have polled further ahead
             self._offsets_dispatched = entry.offset
         t3 = time.monotonic()
-        # host-side watermark advance: the next batch's cutoff, whatever K
-        bm = self._host_batch_max_ts(entry.cols.ts_s)
+        # host-side watermark advance: the next batch's cutoff, whatever
+        # K; a shard advances from its poll before the ownership filter
+        bm = self._host_batch_max_ts(
+            entry.wm_ts if entry.wm_ts is not None else entry.cols.ts_s)
         if bm > self.max_event_ts:
             if (self.max_event_ts == I32_MIN
                     and self._last_flush_cutoff == I32_MIN):
@@ -1377,6 +1708,7 @@ class MicroBatchRuntime:
                     bm - self.cfg.watermark_minutes * 60)
             self.max_event_ts = bm
             self._g_watermark.set(time.time() - bm)
+        self._publish_shard_watermark()
         t_pos = time.monotonic()
         if self.positions_enabled:
             prows = self._fold_positions(entry.cols)
@@ -1390,7 +1722,7 @@ class MicroBatchRuntime:
         # refill the prefetch queue AFTER the dispatch: the next batch's
         # poll, pad and copy run while the device folds this one
         while (not self._closing
-               and len(self._prefetched) < self.cfg.prefetch_batches):
+               and len(self._prefetched) < self._prefetch_n):
             nxt = self._next_batch()
             if nxt is None:
                 break
@@ -1454,6 +1786,8 @@ class MicroBatchRuntime:
         for k in ("fetch", "decode", "wait"):
             if k in es:
                 spans[f"poll_{k}"] = es[k]
+        if "shard_filter" in es:
+            spans["shard_filter"] = es["shard_filter"]
         if infer_s is not None:
             spans["infer"] = infer_s
         self.telemetry.observe_batch(latency_s, spans)
@@ -1608,6 +1942,8 @@ class MicroBatchRuntime:
         self._publish_member_snapshot(force=True, left=clean_close)
         self.tracer.stop()  # write a partial profiler window, if any
         self._closing = True
+        if self._hb_stop is not None:
+            self._hb_stop.set()
         failed = lambda: self._fatal or self.writer.poisoned
         try:
             try:
@@ -1655,6 +1991,10 @@ class MicroBatchRuntime:
             while max_batches is None or n < max_batches:
                 t0 = time.monotonic()
                 progressed = self.step_once()
+                # the beacon after the step: its first write proves a
+                # completed step (the kernels' first build included), so
+                # the supervisor's startup grace holds until then
+                self._touch_heartbeat()
                 # the member snapshot rides the loop, idle polls included,
                 # so a quiet stream still reads as alive at /fleet/healthz
                 self._publish_member_snapshot()

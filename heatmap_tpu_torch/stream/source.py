@@ -1,7 +1,7 @@
 """Pull sources with replayable offsets.
 
 A copy of ``Source``, ``MemorySource``, ``JsonlReplaySource``,
-``SyntheticSource`` and ``KafkaSource`` (its wire impl) from
+``SyntheticSource``, ``RampSource`` and ``KafkaSource`` (its wire impl) from
 ``heatmap_tpu/stream/source.py``: ``poll`` returns up to ``max_events``
 events past the current position (``EventColumns``, or a list of event
 dicts that the runtime parses), ``offset``/``seek`` expose a serializable
@@ -306,6 +306,120 @@ class SyntheticSource(Source):
     @property
     def exhausted(self) -> bool:
         return self.n_events is not None and self._emitted >= self.n_events
+
+
+class RampSource(Source):
+    """Piecewise offered-load schedule with a REAL backlog queue.
+
+    The governor's ramp needs a source whose staleness is honest: a
+    producer emits events at a scheduled rate against the clock, and a
+    consumer that falls behind receives genuinely OLD events — exactly
+    the event-age signal the BatchGovernor (stream/govern.py) governs
+    against.  ``poll`` returns ``min(requested, backlog)`` events whose
+    timestamps are their PRODUCTION times, so event age == how long the
+    engine left them queued.
+
+    ``schedule`` is ``[(events_per_second, duration_s), ...]`` in the
+    injected clock's units — tests drive it (and the runtime's lineage
+    clock) with an accelerated virtual clock so second-resolution event
+    timestamps resolve sub-second real dynamics.  Exhausted once the
+    schedule has elapsed and the backlog drained.  Events cycle a small
+    fixed vehicle/cell population (deterministic function of the event
+    index), keeping state-slab occupancy flat so a governed soak can
+    never trip a slab-growth retrace by itself.
+    """
+
+    def __init__(self, schedule, clock=_time.monotonic, t0: float = 0.0,
+                 n_vehicles: int = 64,
+                 center=(42.3601, -71.0589), radius_deg: float = 0.05):
+        self.schedule = [(float(r), float(d)) for r, d in schedule]
+        if not self.schedule or any(d <= 0 for _, d in self.schedule):
+            raise ValueError("schedule must be non-empty (rate, "
+                             "duration>0) pairs")
+        self.clock = clock
+        self._t0 = t0 or None      # anchored at the first poll
+        self.n_vehicles = int(n_vehicles)
+        rng = np.random.default_rng(7)
+        self._lat = (center[0] + rng.uniform(-radius_deg, radius_deg,
+                                             self.n_vehicles)
+                     ).astype(np.float32)
+        self._lng = (center[1] + rng.uniform(-radius_deg, radius_deg,
+                                             self.n_vehicles)
+                     ).astype(np.float32)
+        self._speed = rng.uniform(10, 90, self.n_vehicles
+                                  ).astype(np.float32)
+        self._vehicles = [f"veh-{i}" for i in range(self.n_vehicles)]
+        # cumulative produced-event counts / elapsed at phase starts
+        self._phase_t = np.cumsum([0.0] + [d for _, d in self.schedule])
+        self._phase_n = np.cumsum(
+            [0.0] + [r * d for r, d in self.schedule])
+        self._consumed = 0
+        self._stopped = False
+
+    def _elapsed(self) -> float:
+        if self._t0 is None:
+            self._t0 = self.clock()
+        return max(0.0, self.clock() - self._t0)
+
+    def _produced(self, elapsed: float) -> int:
+        i = int(np.searchsorted(self._phase_t, elapsed, side="right")) - 1
+        if i >= len(self.schedule):
+            return int(self._phase_n[-1])
+        rate, _ = self.schedule[i]
+        return int(self._phase_n[i]
+                   + rate * (elapsed - self._phase_t[i]))
+
+    def _produce_times(self, i0: int, i1: int) -> np.ndarray:
+        """Production clock time of events [i0, i1) — the inverse of
+        the cumulative schedule, per phase."""
+        idx = np.arange(i0, i1, dtype=np.float64)
+        ph = np.searchsorted(self._phase_n[1:], idx, side="right")
+        ph = np.minimum(ph, len(self.schedule) - 1)
+        rates = np.array([r for r, _ in self.schedule])
+        return (self._phase_t[ph]
+                + (idx - self._phase_n[ph]) / rates[ph])
+
+    def stop(self) -> None:
+        """Give up on the remaining backlog: the source reads exhausted
+        on the next poll.  The ramp bench's drain bound — a static
+        config that fell 10x behind must not stretch the run by the
+        whole backlog's drain time."""
+        self._stopped = True
+
+    def poll(self, max_events: int):
+        if self._stopped:
+            return None
+        elapsed = self._elapsed()
+        backlog = self._produced(elapsed) - self._consumed
+        n = min(int(max_events), backlog)
+        if n <= 0:
+            return None
+        i0, i1 = self._consumed, self._consumed + n
+        t_prod = self._produce_times(i0, i1)
+        idx = np.arange(i0, i1, dtype=np.int64)
+        vid = (idx % self.n_vehicles).astype(np.int32)
+        cols = columns_from_arrays(
+            self._lat[vid], self._lng[vid], self._speed[vid],
+            (self._t0 + t_prod).astype(np.int64).astype(np.int32),
+            vehicle_id=vid, providers=["ramp"], vehicles=self._vehicles)
+        self._consumed = i1
+        return cols
+
+    @property
+    def backlog(self) -> int:
+        return self._produced(self._elapsed()) - self._consumed
+
+    def offset(self):
+        return self._consumed
+
+    def seek(self, offset) -> None:
+        self._consumed = int(offset or 0)
+
+    @property
+    def exhausted(self) -> bool:
+        return self._stopped or (self._elapsed() >= self._phase_t[-1]
+                                 and self._consumed
+                                 >= int(self._phase_n[-1]))
 
 
 class KafkaSource(Source):

@@ -1,2 +1,3 @@
 """In-process wire-level fakes of external services (a Kafka broker, a
-MongoDB server)."""
+MongoDB server) and the fault injectors of the resilience tests
+(``faults``)."""

@@ -482,3 +482,49 @@ def test_serve_only_app_healthz_names_the_corrupt_record(tmp_path):
         apps[0].close()
         apps[1].close_repl()
         pub.close()
+
+
+# ------------------------------------------------ the shard fleet
+def test_sharded_replicated_conservation(tmp_path, monkeypatch):
+    """Two port shards fan into one merged view replicated to a port and
+    a JAX follower: no residual on either shard, the per-shard digests
+    XOR-combine to the merged view's (the /fleet/audit stitch), and both
+    replicas verify every published digest."""
+    from test_audit import mk_stream as audit_stream
+    from test_torch_shard_diff import run_shard
+
+    from heatmap_tpu_torch.obs.fleet import fleet_audit
+
+    monkeypatch.setenv("HEATMAP_H3_IMPL", "native")
+    feed = str(tmp_path / "feed")
+    merged_view, pub = _writer("port", feed)
+    replicas = [_replica(pkg, feed) for pkg in ("port", "jax")]
+    store = MemoryStore()
+    fleet = [run_shard(tmp_path, audit_stream(), store, f"a{i}", shards=2,
+                       index=i, view=merged_view, audit=True)
+             for i in range(2)]
+    pub.flush()
+    for _view, fol, _aud, _reg in replicas:
+        while fol.step():
+            pass
+    pub.close()
+    members = {}
+    for i, rt in enumerate(fleet):
+        assert rt.audit.leaking() == {}
+        assert all(v == 0 for v in rt.audit.residuals().values())
+        assert rt.counters.get("events_out_of_shard", 0) > 0
+        rt.audit.attach(view=merged_view)
+        members[f"shard{i}"] = {"audit": rt.audit.member_block()}
+    stitched = fleet_audit(members)
+    assert stitched["combine"]
+    assert all(c["ok"] for c in stitched["combine"]), stitched["combine"]
+    assert stitched["combine_mismatches"] == 0 and stitched["ok"]
+    # the JAX package's stitch reads the port members' blocks the same way
+    from heatmap_tpu.obs.fleet import fleet_audit as jax_fleet_audit
+
+    assert jax_fleet_audit(members) == stitched
+    for view, fol, aud, _ in replicas:
+        assert fol.synced and fol.seq_lag() == 0
+        assert aud.mismatches == 0 and aud.verified > 0
+        assert aud.last_verified_seq == merged_view.seq
+        assert view.export_state() == merged_view.export_state()

@@ -67,15 +67,43 @@ def events_of(engine, qids):
     return out
 
 
-def test_engines_match_jax_over_the_same_mutations():
+class _EngineTime:
+    """One fake clock for both engines' ``time`` module: ``time()`` stamps
+    ``created_unix`` and ``monotonic()`` the expiry ``describe`` counts
+    down, so neither reads the wall clock between the two registers."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def time(self):
+        return self.t
+
+    def monotonic(self):
+        return self.t
+
+    def __getattr__(self, name):
+        import time
+
+        return getattr(time, name)
+
+
+def test_engines_match_jax_over_the_same_mutations(monkeypatch):
+    import heatmap_tpu.query.continuous as jcontinuous
+    import heatmap_tpu_torch.query.continuous as tcontinuous
+
     rng = np.random.default_rng(31)
     cells = city_cells(200, 8, 31)
     w0 = 1_700_000_100 // WIN_S * WIN_S
     clock = _Clock(w0)
+    engine_time = _EngineTime(2_000_000_000.0)
+    for mod in (tcontinuous, jcontinuous):
+        monkeypatch.setattr(mod, "time", engine_time)
     mine = TileMatView(now_fn=clock)
     ref = JaxView(now_fn=clock)
-    eng = ContinuousQueryEngine(mine, registry=Registry())
-    jeng = JaxEngine(ref, registry=JaxRegistry())
+    eng = ContinuousQueryEngine(mine, registry=Registry(),
+                                clock=engine_time.monotonic)
+    jeng = JaxEngine(ref, registry=JaxRegistry(),
+                     clock=engine_time.monotonic)
     seed = tile_docs(cells[:60], w0, rng)
     mine.apply_docs(seed)
     ref.apply_docs(seed)

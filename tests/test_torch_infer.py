@@ -55,6 +55,7 @@ import torch
 
 import test_infer
 from heatmap_tpu.config import load_config as jax_load_config
+from heatmap_tpu.engine import step as jstep
 from heatmap_tpu.hexgrid import native_snap as jax_native_snap
 from heatmap_tpu.infer import engine as jengine
 from heatmap_tpu.infer import entities as jentities
@@ -846,3 +847,124 @@ def test_entry_point_with_kalman_writes_velocity_columns(tmp_path):
     assert os.path.exists(next(
         (tmp_path / "ckpt").glob("commit-*/extra-infer.npz")))
     shutil.rmtree(tmp_path / "ckpt")
+
+
+# --- the shard fleet's fan-in (the sharded runtime, HEATMAP_SHARDS) ---------
+
+def _watching_view():
+    from heatmap_tpu_torch.query import TileMatView
+
+    view = TileMatView(delta_log=8192, pyramid_levels=2)
+    view.captured_anomalies = []
+    view.add_watcher(lambda rec: view.captured_anomalies.append(rec)
+                     if rec.get("kind") == "anomaly" else None)
+    return view
+
+
+def _jax_watching_view():
+    from heatmap_tpu.query import TileMatView as JaxTileMatView
+
+    view = JaxTileMatView(delta_log=8192, pyramid_levels=2)
+    view.captured_anomalies = []
+    view.add_watcher(lambda rec: view.captured_anomalies.append(rec)
+                     if rec.get("kind") == "anomaly" else None)
+    return view
+
+
+def _anoms_of(view):
+    return sorted((e["entity"], e["reason"], e["t"], e["cell"], e["lat"],
+                   e["lon"], e["score"])
+                  for rec in view.captured_anomalies for e in rec["events"])
+
+
+def _fleet_fold(tmp_path, events, jax, tag, **kw):
+    """One kalman run of either package over ``events`` (host keys)."""
+    from test_infer_diff import BATCH as IBATCH
+
+    cfg_kw = dict(batch_size=IBATCH, state_capacity_log2=12,
+                  speed_hist_bins=8, store="memory", emit_flush_k=3,
+                  reducers=("count", "kalman"),
+                  checkpoint_dir=str(tmp_path / f"{tag}-{int(jax)}"), **kw)
+    view = _jax_watching_view() if jax else _watching_view()
+    if jax:
+        src = JaxMemorySource(copy.deepcopy(events))
+        src.finish()
+        rt = JaxRuntime(jax_load_config({}, **cfg_kw), src,
+                        JaxMemoryStore(), checkpoint_every=0, view=view)
+    else:
+        src = MemorySource(copy.deepcopy(events))
+        src.finish()
+        rt = MicroBatchRuntime(load_config({}, **cfg_kw), src,
+                               MemoryStore(), device="cpu",
+                               checkpoint_every=0, view=view)
+    rt.run()
+    return rt, view
+
+
+def test_one_vs_n_shard_fanin_with_handoffs(tmp_path, monkeypatch):
+    """N port shards with kalman fan their anomalies, entity tables and
+    velocity fields into the single logical-N run's exactly, and each
+    equals the JAX package's within the rounds' bars."""
+    from test_infer_diff import N_SHARDS as N
+    from test_infer_diff import mk_stream as infer_stream
+
+    monkeypatch.setenv("HEATMAP_H3_IMPL", "native")
+    for slot in ("SNAP_IMPL", "MERGE_IMPL", "FASTPATH", "MERGE_BANK_PIN"):
+        monkeypatch.setattr(jstep, slot, getattr(jstep, slot))
+    events = infer_stream(late=False)
+    runs = {}
+    for jax in (False, True):
+        single, sview = _fleet_fold(tmp_path, events, jax, "single",
+                                    entity_shards=N)
+        fleet = [_fleet_fold(tmp_path, events, jax, f"s{i}", shards=N,
+                             shard_index=i) for i in range(N)]
+        runs[jax] = (single, sview, fleet)
+    single, sview, fleet = runs[False]
+    assert single.infer.partition is not None
+    assert single.infer.table.n_reseed_handoff > 0
+    for i, (rt, _) in enumerate(fleet):
+        assert rt.infer.partition.index == i and rt.infer.n_part == N
+    merged = sorted(sum((_anoms_of(v) for _, v in fleet), []))
+    assert merged == _anoms_of(sview) and merged
+    st = single.infer.table
+    assert sum(rt.infer.table.occupancy for rt, _ in fleet) == st.occupancy
+    checked = 0
+    for slot in np.nonzero(st.vid >= 0)[0]:
+        name, owner = st.names[int(slot)], int(st.owner[slot])
+        ft = fleet[owner][0].infer.table
+        fs = [i for i, nm in enumerate(ft.names) if nm == name]
+        assert fs, f"{name} missing from owning shard {owner}"
+        np.testing.assert_array_equal(st.x[slot], ft.x[fs[0]])
+        np.testing.assert_array_equal(st.P[slot], ft.P[fs[0]])
+        checked += 1
+    assert checked > 10
+    single_vel = single.infer.velocity_field(8)
+    merged_vel: dict = {}
+    for rt, _ in fleet:
+        for c, (vx, vy, ct) in rt.infer.velocity_field(8).items():
+            pvx, pvy, pct = merged_vel.get(c, (0.0, 0.0, 0))
+            tot = pct + ct
+            merged_vel[c] = ((pvx * pct + vx * ct) / tot,
+                             (pvy * pct + vy * ct) / tot, tot)
+    assert merged_vel.keys() == single_vel.keys() and merged_vel
+    for c, (vx, vy, ct) in single_vel.items():
+        assert merged_vel[c][2] == ct
+        np.testing.assert_allclose(merged_vel[c][:2], (vx, vy), rtol=1e-9)
+    # against the JAX package: the same anomalies (scores within the
+    # rounds' bar), the same shards' tables within RTOL/ATOL
+    jsingle, jsview, jfleet = runs[True]
+    jmerged = sorted(sum((_anoms_of(v) for _, v in jfleet), []))
+    assert [a[:6] for a in merged] == [a[:6] for a in jmerged]
+    for a, b in zip(merged, jmerged):
+        assert abs(a[6] - b[6]) <= 1e-3 + 1e-5 * abs(b[6])
+    for (rt, _), (jrt, _) in zip(fleet, jfleet):
+        tt, jt = rt.infer.table, jrt.infer.table
+        assert tt.names == jt.names
+        for col in ("vid", "owner", "n_upd"):
+            np.testing.assert_array_equal(getattr(tt, col),
+                                          getattr(jt, col))
+        for col in ("x", "P"):
+            np.testing.assert_allclose(getattr(tt, col), getattr(jt, col),
+                                       rtol=RTOL, atol=ATOL)
+    assert (single.infer.table.n_reseed_handoff
+            == jsingle.infer.table.n_reseed_handoff)

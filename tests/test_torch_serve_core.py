@@ -55,10 +55,11 @@ UTC = dt.timezone.utc
 _NONCE = re.compile(r'(?<=["."])[0-9a-f]{8}(?=\.)')
 
 
-def _mk_store(n=40, store=None):
+def _mk_store(n=40, store=None, ws=None):
     store = store or MemoryStore()
     rng = np.random.default_rng(50)
-    ws = int(time.time()) // WIN_S * WIN_S - WIN_S
+    if ws is None:
+        ws = int(time.time()) // WIN_S * WIN_S - WIN_S
     store.upsert_tiles(tile_docs(city_cells(n, 8, 51), ws, rng))
     return store
 
@@ -253,10 +254,10 @@ def _fam(app, name):
     raise AssertionError(f"no family {name}")
 
 
-def _shed_slow_reader(start, store, cells):
-    """Wedge one subscriber of an epoll server while another reads on;
-    returns (lagged count, the worst write stall seen, the wedged
-    stream's tail)."""
+def _shed_slow_reader(start, store, cells, ws):
+    """Wedge one subscriber of an epoll server while another reads on,
+    upserting into window ``ws``; returns (lagged count, the worst write
+    stall seen, the wedged stream's tail)."""
     env = {"HEATMAP_SERVE_CORE": "epoll", "HEATMAP_VIEW_POLL_MS": "30",
            "HEATMAP_SSE_QUEUE": "2", "HEATMAP_SSE_HEARTBEAT_S": "5",
            "HEATMAP_SSE_SEND_TIMEOUT_S": "60"}
@@ -272,7 +273,6 @@ def _shed_slow_reader(start, store, cells):
     try:
         _read_until(slow, lambda b: b"event: tiles" in b)
         _read_until(good, lambda b: b"event: tiles" in b)
-        ws = int(time.time()) // WIN_S * WIN_S - WIN_S
         stall = 0.0
         for m in range(30):
             store.upsert_tiles([
@@ -314,9 +314,12 @@ def test_lagged_shed_as_in_the_reference():
         return jax_start_background(store, jax_load_config(env),
                                     port=_free_port())
 
-    got = [_shed_slow_reader(port_start, _mk_store(), cells),
-           _shed_slow_reader(jax_start, _mk_store(store=JaxMemoryStore()),
-                             cells)]
+    # one window for both servers, so a run that straddles a window
+    # boundary of the wall clock compares like with like
+    ws = int(time.time()) // WIN_S * WIN_S - WIN_S
+    got = [_shed_slow_reader(port_start, _mk_store(ws=ws), cells, ws),
+           _shed_slow_reader(jax_start, _mk_store(store=JaxMemoryStore(),
+                                                  ws=ws), cells, ws)]
     for lagged, stall, tail in got:
         assert lagged >= 1 and stall > 0.0
         assert tail.endswith(b"event: lagged\ndata: {}")

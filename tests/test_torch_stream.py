@@ -415,6 +415,34 @@ with MockMongod() as uri:
         m = rt.metrics
         assert m["tiles_written"] > 0 and m["positions_written"] > 0, m
         shutil.rmtree(cfg.checkpoint_dir)
+
+# the shard fleet, the governor, the heartbeat and the supervisor
+import heatmap_tpu_torch.stream.govern
+import heatmap_tpu_torch.stream.shardmap
+import heatmap_tpu_torch.stream.supervisor
+import heatmap_tpu_torch.testing.faults
+from heatmap_tpu_torch.stream.source import RampSource
+ckpt = tempfile.mkdtemp()
+os.environ["HEATMAP_HEARTBEAT_FILE"] = ckpt + "/hb"
+os.environ["HEATMAP_SUPERVISOR_CHANNEL"] = ckpt + "/channel.json"
+store = MemoryStore()
+for i in range(2):
+    cfg = load_config({}, city="bos", h3_res=9, resolutions=(9,),
+                      batch_size=1024, state_capacity_log2=12, shards=2,
+                      shard_index=i, govern=True, govern_min_batch=256,
+                      store="jsonl", checkpoint_dir=ckpt)
+    shard_store = make_store(cfg)
+    rt = MicroBatchRuntime(cfg, SyntheticSource(n_events=4096),
+                           shard_store, device="cpu")
+    rt.run()
+    shard_store.close()
+    assert rt.governor is not None and rt.counters["events_out_of_shard"]
+assert os.path.exists(ckpt + "/hb")
+assert make_store(load_config({"HEATMAP_SHARDS": "2"}, store="jsonl",
+                              checkpoint_dir=ckpt), writer=False).n_tiles
+assert RampSource([(10.0, 1.0)]).schedule
+shutil.rmtree(ckpt)
+del os.environ["HEATMAP_HEARTBEAT_FILE"], os.environ["HEATMAP_SUPERVISOR_CHANNEL"]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "heatmap_tpu" or m.startswith("heatmap_tpu."))
@@ -486,11 +514,16 @@ def test_entry_point_default_pipeline_matches_jax(monkeypatch):
     assert list(mine.choices) == list(ref.choices)
 
 
-# the knobs still refused name their exact slice: the sharded runtime,
-# the governor and the supervisor (A7b), the mesh (A8)
-_KNOB_ITEMS = {"HEATMAP_SHARDS": "A7b,", "HEATMAP_SHARD_INDEX": "A7b,",
-               "HEATMAP_GOVERN": "A7b,", "HEATMAP_HEARTBEAT_FILE": "A7b,",
+# the knobs still refused name their exact slice, the mesh (A8); the
+# sharded runtime's, the governor's and the supervisor's (A7b) load as in
+# the reference since their slice
+_KNOB_ITEMS = {"HEATMAP_SHARDS": None, "HEATMAP_SHARD_INDEX": None,
+               "HEATMAP_GOVERN": None, "HEATMAP_HEARTBEAT_FILE": None,
                "HEATMAP_COORDINATOR": "A8,", "NUM_SHARDS": "A8,"}
+_A7B_FIELDS = ("shards", "shard_index", "shard_res", "shard_oversample",
+               "govern", "govern_interval_s", "govern_min_batch",
+               "govern_max_flush_k", "govern_max_prefetch",
+               "govern_healthy_frac")
 
 
 @pytest.mark.parametrize("knob,on,off", [
@@ -504,11 +537,23 @@ _KNOB_ITEMS = {"HEATMAP_SHARDS": "A7b,", "HEATMAP_SHARD_INDEX": "A7b,",
 ])
 def test_unported_knob_raises_by_name(knob, on, off):
     """C2: a knob that turns on a subsystem the port lacks raises, naming
-    itself and the ROADMAP item that ports it; its "off" value loads in
-    both packages."""
-    with pytest.raises(NotImplementedError, match=knob) as e:
-        load_config({knob: on})
-    assert f"ROADMAP {_KNOB_ITEMS[knob]}" in str(e.value)
+    itself and the ROADMAP item that ports it; a knob of a ported slice
+    (A7b) loads as the reference loads it, its fields equal; the "off"
+    value loads in both packages."""
+    item = _KNOB_ITEMS[knob]
+    if item is None:
+        # a shard index needs a fleet it lies in
+        env = {knob: on, **({"HEATMAP_SHARDS": "2"}
+                            if knob == "HEATMAP_SHARD_INDEX" else {})}
+        mine, ref = load_config(env), jax_load_config(env)
+        for f in _A7B_FIELDS:
+            assert getattr(mine, f) == getattr(ref, f), (knob, f)
+        assert (mine.shards, mine.shard_index, mine.govern) != (1, 0, False) \
+            or knob == "HEATMAP_HEARTBEAT_FILE"
+    else:
+        with pytest.raises(NotImplementedError, match=knob) as e:
+            load_config({knob: on})
+        assert f"ROADMAP {item}" in str(e.value)
     load_config({knob: off})
     jax_load_config({knob: off})
 

@@ -70,11 +70,10 @@ AXES = dict(city="bos", h3_res=8, resolutions=(8,), windows_minutes=(5,),
 
 # families only the reference registers at these settings, each with the
 # ROADMAP item that brings it to the port
-REFERENCE_ONLY = {
-    # the fast-path pin: multi-host lockstep and the governor pin the
-    # emit ring and the prefetch down, and neither is ported
-    "heatmap_fastpath_pinned": "A7b, A8",
-}
+# every family the reference registers the port registers too (the
+# fast-path pin since the governor's slice, A7b; it has no child in the
+# one-device port)
+REFERENCE_ONLY: dict = {}
 
 
 def make_events(seed=7):
